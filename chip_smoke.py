@@ -7,25 +7,38 @@ Phases, each of which fails the run (non-zero exit) on any miss:
 
 1. device: the card's name and ``nvidia-smi`` name / power limit;
 2. build: compiles the kernels from ``deodr_tpu_torch/csrc`` (timed);
-3. each kernel against its plain PyTorch version on the card, at the bench
-   shapes (512², 200 triangles, 48×128 tiles, float32): slot_map exact,
-   z within 1e-5, images within 1e-4, gradient tables within 1e-3 of
-   their scale; times of kernel and plain version;
-4. the main path: ``render_scene`` forward + backward at σ = 0 and σ = 1,
+3. the untextured path on the bench scene (512², 200 triangles, 48×128
+   tiles, float32). The raster and edge kernels against their plain PyTorch
+   versions on the card: slot_map exact, z within 1e-5, images within 1e-4,
+   gradient tables within 1e-3 of their scale; times of kernel and plain
+   version. Then ``render_scene`` forward + backward at σ = 0 and σ = 1,
    image and error mode, with ``check_capacity=True``, held against the
    same call with ``impl="reference"``; launch counts are zeroed just
-   before and read just after;
-5. a 20-step gradient descent on ``ij`` and ``colors`` towards the
-   unperturbed render (the loss must fall), then the median fwd+bwd step
-   time and Mpix/s at σ = 0 and σ = 1 (CUDA events, after warm-up), and a
-   ``torch.profiler`` breakdown of one σ = 1 step (device busy share,
-   device operations per step, heaviest operations);
-6. one JSON line ``{"kernels": [...]}`` (launches on the main path, error,
-   times, the least time the card could take);
-7. last line ``{"ok": true, "device": {...}}``.
+   before and read just after. Then a 20-step gradient descent on ``ij``
+   and ``colors`` towards the unperturbed render (the loss must fall), the
+   median fwd+bwd step time and Mpix/s at σ = 0 and σ = 1 (CUDA events,
+   after warm-up), and a ``torch.profiler`` breakdown of one σ = 1 step
+   (device busy share, device operations per step, heaviest operations);
+4. the textured path on the duck scene at full width (640×480, 4212 faces,
+   the 512² texture, σ = 1, the plan of ``deodr_tpu_torch.duck_scene``).
+   The textured edge kernel against its plain version in image and error
+   mode (buffer within 1e-4, gradient rows and texture gradient within
+   1e-3 of their scale: float32 atomics sum in another order) and the
+   raster kernel again with its 7 attribute planes. Then ``render_scene``
+   forward + backward with ``check_capacity=True`` against
+   ``impl="reference"``: image, z-buffer and the gradients to ij, uv, shade
+   and texture, with launch counts zeroed just before and read just after.
+   Then a few descent steps on the duck loss of ``bench.py``
+   (obs = clip(render + 0.05, 0, 1); the loss must fall), the median
+   fwd+bwd step time and one profiled step;
+5. one JSON line ``{"kernels": [...]}``, one record per kernel and main path
+   that launches it (launches on that path, error, times, the least time the
+   card could take at that path's shapes);
+6. last line ``{"ok": true, "device": {...}}``.
 
-The bench scene comes from ``deodr_tpu_torch.bench_scene`` (numpy, seed 0,
-as ``bench.py`` builds it); nothing of JAX or of the JAX package is imported.
+The scenes come from ``deodr_tpu_torch.bench_scene`` (numpy, seed 0, as
+``bench.py`` builds it) and ``deodr_tpu_torch.duck_scene`` (``data/duck.obj``
+and its texture); nothing of JAX or of the JAX package is imported.
 """
 
 from __future__ import annotations
@@ -47,12 +60,17 @@ AA_EDGE_CAPACITY = 600
 # float operations per (pixel, slot) visit of each kernel's per-slot test,
 # counted from the kernel source (multiplies, adds, compares); the blend of
 # the few pixels inside a band is left out, so the bound stays a lower bound
-OPS_PER_VISIT = {"raster_fwd": 33, "edge_fwd": 33, "edge_bwd": 33}
+OPS_PER_VISIT = {"raster_fwd": 33, "edge_fwd": 33, "edge_bwd": 33, "edge_tex_fwd": 33, "edge_tex_bwd": 33}
+# the main paths (scenes) that launch each kernel: the kernels line has one record per (kernel, path)
+KERNEL_PATHS = {"raster_fwd": ("bench", "duck"), "raster_bwd": ("bench", "duck"), "edge_fwd": ("bench",),
+                "edge_bwd": ("bench",), "edge_tex_fwd": ("duck",), "edge_tex_bwd": ("duck",)}
 KERNEL_SOURCES = {
     "raster_fwd": ("deodr_tpu_torch/csrc/raster_kernel.cu", "deodr_tpu/ops/pallas/raster_kernel.py:137"),
     "raster_bwd": ("deodr_tpu_torch/csrc/raster_kernel.cu", "deodr_tpu/ops/pallas/raster_kernel.py:193"),
     "edge_fwd": ("deodr_tpu_torch/csrc/edge_kernel.cu", "deodr_tpu/ops/pallas/edge_kernel.py:150"),
     "edge_bwd": ("deodr_tpu_torch/csrc/edge_kernel.cu", "deodr_tpu/ops/pallas/edge_kernel.py:202"),
+    "edge_tex_fwd": ("deodr_tpu_torch/csrc/edge_tex_kernel.cu", "deodr_tpu/ops/pallas/edge_tex_kernel.py:160"),
+    "edge_tex_bwd": ("deodr_tpu_torch/csrc/edge_tex_kernel.cu", "deodr_tpu/ops/pallas/edge_tex_kernel.py:257"),
 }
 
 
@@ -100,19 +118,16 @@ def bound_ms(n_bytes: float, n_ops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_kernels(scene, tiling, obs, device, say):
-    """Phase 3: each kernel against its plain version at the main path's
-    shapes; returns per-kernel measurements."""
-    from deodr_tpu_torch.ops.edge_aa import EdgeAAConfig
-    from deodr_tpu_torch.ops.kernels import edge_kernel as ek
+def check_raster_kernels(scene, tiling, device, say, gen):
+    """The raster kernels against their plain versions on ``scene``'s
+    tables; returns their measurements."""
     from deodr_tpu_torch.ops.kernels import raster_kernel as rk
-    from deodr_tpu_torch.ops.render import _build_edge_data, prepare
-    from deodr_tpu_torch.ops.tiled import edge_tables, pad_edge_buffers, raster_tables, rasterize_tiled_kernel
+    from deodr_tpu_torch.ops.render import prepare
+    from deodr_tpu_torch.ops.tiled import raster_tables
 
-    gen = torch.Generator(device="cpu").manual_seed(1)
     out = {}
     with torch.no_grad():
-        ij_off, signed_area, draw, background = prepare(scene)
+        ij_off, _, draw, _ = prepare(scene)
         rt = raster_tables(scene, ij_off, draw, tiling)
         grid, cap_r = rt.grid, rt.setup_tile.shape[1]
         n_px = grid.tile_h * grid.tile_w
@@ -127,7 +142,7 @@ def check_kernels(scene, tiling, obs, device, say):
         check(torch.equal(fin, torch.isfinite(z_k)), "raster_fwd coverage differs")
         e_z = max_err(z_k[fin], z_ref[fin])
         e_v = max_err(v_k, v_ref)
-        say(f"raster_fwd: slot_map exact, z err {e_z:.3g} (limit 1e-5), vals err {e_v:.3g} (limit 1e-4)")
+        say(f"raster_fwd (D = {d}): slot_map exact, z err {e_z:.3g} (limit 1e-5), vals err {e_v:.3g} (limit 1e-4)")
         check(e_z <= 1e-5 and e_v <= 1e-4, "raster_fwd outside its tolerance")
         rows = int(rt.counts.to(torch.int64).clamp(max=cap_r).sum())
         p_total = grid.n_tiles * n_px
@@ -144,7 +159,7 @@ def check_kernels(scene, tiling, obs, device, say):
         gt_ref = rk.raster_bwd(s_ref, g_vals, rt.counts, grid, cap_r, impl="reference")
         gt_k = rk.raster_bwd(s_ref, g_vals, rt.counts, grid, cap_r)
         e_g = rel_err(gt_k, gt_ref)
-        say(f"raster_bwd: g_table err {e_g:.3g} of scale (limit 1e-3)")
+        say(f"raster_bwd (D = {d}): g_table err {e_g:.3g} of scale (limit 1e-3)")
         check(e_g <= 1e-3, "raster_bwd outside its tolerance")
         out["raster_bwd"] = dict(
             max_abs_err=max_err(gt_k, gt_ref),
@@ -152,7 +167,22 @@ def check_kernels(scene, tiling, obs, device, say):
             plain_ms=time_ms(lambda: rk.raster_bwd(s_ref, g_vals, rt.counts, grid, cap_r, impl="reference"), 3, device),
             bound=bound_ms(p_total * (4 + esz * d) + rows * 3 * d * esz, p_total * 6 * d),
         )
+    return out
 
+
+def check_kernels(scene, tiling, obs, device, say):
+    """Each kernel of the untextured path against its plain version at the
+    bench scene's shapes; returns per-kernel measurements."""
+    from deodr_tpu_torch.ops.edge_aa import EdgeAAConfig
+    from deodr_tpu_torch.ops.kernels import edge_kernel as ek
+    from deodr_tpu_torch.ops.render import _build_edge_data, prepare
+    from deodr_tpu_torch.ops.tiled import edge_tables, pad_edge_buffers, rasterize_tiled_kernel
+
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    out = check_raster_kernels(scene, tiling, device, say, gen)
+    with torch.no_grad():
+        ij_off, signed_area, draw, background = prepare(scene)
+        esz = scene.ij.element_size()
         # edge pass inputs: the solid pass's image and z-buffer, the bench's edges
         image, z_buffer, _ = rasterize_tiled_kernel(scene, ij_off, draw, background, tiling, impl="reference")
         edges = _build_edge_data(scene, ij_off, signed_area, AA_EDGE_CAPACITY)
@@ -260,45 +290,47 @@ def train(scene, tiling, device, say, steps=20):
     return losses
 
 
-def step_times(scene, tiling, obs, device, reps=20):
-    """Median ms of one fwd+bwd step (render, loss, backward) per σ."""
-    out = {}
-    for sigma in (0.0, 1.0):
-        def step():
-            loss_and_grads(scene, sigma, tiling, obs, False, "kernel", check_capacity=False)
-
-        for _ in range(3):
+def median_step_ms(step, device, reps=20):
+    """Median ms of ``step()`` over ``reps`` calls after three warm-ups:
+    CUDA events on the card, the host clock elsewhere (rehearsal only)."""
+    for _ in range(3):
+        step()
+    times = []
+    for _ in range(reps):
+        if device.type == "cuda":
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
             step()
-        times = []
-        for _ in range(reps):
-            if device.type == "cuda":
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                start.record()
-                step()
-                end.record()
-                torch.cuda.synchronize()
-                times.append(start.elapsed_time(end))
-            else:
-                t0 = time.perf_counter()
-                step()
-                times.append((time.perf_counter() - t0) * 1e3)
-        out[sigma] = statistics.median(times)
-    return out
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            step()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
 
 
-def profile_step(scene, tiling, obs, device, say, steps=5):
-    """Where one σ = 1 fwd+bwd step spends its time: host wall clock per
+def step_times(scene, tiling, obs, device):
+    """Median ms of one fwd+bwd step (render, loss, backward) per σ."""
+    return {
+        sigma: median_step_ms(
+            lambda: loss_and_grads(scene, sigma, tiling, obs, False, "kernel", check_capacity=False), device
+        )
+        for sigma in (0.0, 1.0)
+    }
+
+
+def profile_step(step, tag, device, say, steps=5):
+    """Where one fwd+bwd ``step()`` spends its time: host wall clock per
     step (profiler on), device busy time (sum of the card's kernel and copy
     durations, one stream) and the number of device operations per step,
     and the device time of the heaviest operations by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def step():
-        loss_and_grads(scene, 1.0, tiling, obs, False, "kernel", check_capacity=False)
-
     if device.type != "cuda":
-        say("profile: not measured (no card)")
+        say(f"profile {tag}: not measured (no card)")
         return
     step()
     torch.cuda.synchronize()
@@ -310,20 +342,206 @@ def profile_step(scene, tiling, obs, device, say, steps=5):
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     device_ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not device_ops:
-        say(f"profile sigma=1: wall {wall_ms:.4f} ms/step; device time not measured (the profiler saw no device ops)")
+        say(f"profile {tag}: wall {wall_ms:.4f} ms/step; device time not measured (the profiler saw no device ops)")
         return
     by_name = {}
     for e in device_ops:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    say(f"profile sigma=1: wall {wall_ms:.4f} ms/step (profiler on), device busy {busy:.4f} ms/step "
+    say(f"profile {tag}: wall {wall_ms:.4f} ms/step (profiler on), device busy {busy:.4f} ms/step "
         f"({100 * busy / wall_ms:.2f}% of wall), {len(device_ops) / steps:.0f} device ops/step")
-    say("profile top device time (ms/step): " + "; ".join(f"{name[:60]} {ms:.4f}" for name, ms in top))
+    say(f"profile {tag} top device time (ms/step): " + "; ".join(f"{name[:60]} {ms:.4f}" for name, ms in top))
+
+
+# ------------------------------------------------------ the duck (textured)
+
+
+def check_tex_kernels(scene, obs, device, say):
+    """The textured edge kernel against its plain version at the duck's
+    shapes, image and error mode, and the raster kernels again with the
+    textured scene's 7 attribute planes; returns per-kernel measurements
+    (raster numbers under ``raster_*``, the duck's)."""
+    from deodr_tpu_torch import duck_scene as ds
+    from deodr_tpu_torch.ops.edge_aa import EdgeAAConfig
+    from deodr_tpu_torch.ops.kernels import edge_tex_kernel as etk
+    from deodr_tpu_torch.ops.render import _build_edge_data, prepare
+    from deodr_tpu_torch.ops.tiled import (
+        compact_active_edges, edge_tables, pad_edge_buffers, rasterize_tiled_kernel, split_edges,
+    )
+
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    tiling, plan = ds.DUCK_TILING, ds.DUCK_TEX_PLAN
+    out = check_raster_kernels(scene, tiling, device, say, gen)
+    texture = scene.texture
+    with torch.no_grad():
+        ij_off, signed_area, draw, background = prepare(scene)
+        esz = scene.ij.element_size()
+        image, z_buffer, _ = rasterize_tiled_kernel(scene, ij_off, draw, background, tiling, impl="reference")
+        edges = _build_edge_data(scene, ij_off, signed_area, ds.DUCK_AA_EDGE_CAPACITY)
+        edges = compact_active_edges(
+            split_edges(edges, plan.n_split, None, uv_segment_length=plan.uv_segment_length), plan.seg_capacity
+        )
+        for name in ("edge_tex_fwd", "edge_tex_bwd"):
+            out[name] = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound=(0.0, "operations"))
+        for error_mode in (False, True):
+            mode = "error" if error_mode else "image"
+            cfg = EdgeAAConfig(scene.height, scene.width, ds.DUCK_SIGMA, scene.clockwise, error_mode, True)
+            et = edge_tables(cfg, edges, z_buffer, tiling)
+            buffer = ((image - obs) ** 2).sum(dim=-1) if error_mode else image
+            buf, z_pad, obs_pad = pad_edge_buffers(cfg, buffer, z_buffer, obs, et.grid)
+            args = (et.table_tile, texture, buf, z_pad, obs_pad, et.counts, et.grid, error_mode)
+            o_ref = etk.edge_tex_fwd(*args, impl="reference")
+            o_k = etk.edge_tex_fwd(*args)
+            e_o = max_err(o_k, o_ref)
+            changed = int((o_ref != buf).any(dim=0).sum())
+            say(f"edge_tex_fwd ({mode}): out err {e_o:.3g} (limit 1e-4); the bands blend {changed} pixels")
+            check(e_o <= 1e-4 and changed > 0, f"edge_tex_fwd ({mode}) outside its tolerance")
+
+            g_out = torch.rand(o_ref.shape, generator=gen, dtype=o_ref.dtype).to(device)
+            bargs = (et.table_tile, texture, o_ref, z_pad, obs_pad, g_out, et.counts, et.grid, error_mode)
+            gr_ref, gb_ref, gt_ref = etk.edge_tex_bwd(*bargs, impl="reference")
+            gr_k, gb_k, gt_k = etk.edge_tex_bwd(*bargs)
+            e_r, e_b, e_t = rel_err(gr_k, gr_ref), max_err(gb_k, gb_ref), rel_err(gt_k, gt_ref)
+            say(f"edge_tex_bwd ({mode}): g_table err {e_r:.3g} of scale (limit 1e-3), g_buf0 err {e_b:.3g} "
+                f"(limit 1e-4), g_texture err {e_t:.3g} of scale (limit 1e-3; atomics sum in another order)")
+            check(e_r <= 1e-3 and e_b <= 1e-4 and e_t <= 1e-3, f"edge_tex_bwd ({mode}) outside its tolerance")
+            check(float(gt_k.abs().max()) > 0 and float(gr_k[..., -9:].abs().max()) > 0,
+                  f"edge_tex_bwd ({mode}): no gradient reached the texture or the uv/shade rows")
+            out["edge_tex_fwd"]["max_abs_err"] = max(out["edge_tex_fwd"]["max_abs_err"], e_o)
+            out["edge_tex_bwd"]["max_abs_err"] = max(
+                out["edge_tex_bwd"]["max_abs_err"], max_err(gr_k, gr_ref), e_b, max_err(gt_k, gt_ref)
+            )
+            if not error_mode:  # times and bounds in image mode, the duck loss's mode
+                e_cap = et.table_tile.shape[1]
+                e_rows = int(et.counts.to(torch.int64).clamp(max=e_cap).sum())
+                e_visits = et.grid.tile_h * et.grid.tile_w * e_rows
+                w_row, c = et.table_tile.shape[2], buf.shape[0]
+                p_e = et.grid.n_tiles * et.grid.tile_h * et.grid.tile_w
+                # texels: 4 taps x C only where a textured slot paints (counted from this run's tables);
+                # the backward reads them, adds as many with atomics, and writes the dense texture gradient
+                tex_visits = etk.textured_visits(et.table_tile, z_pad, et.counts, et.grid)
+                tap_bytes = tex_visits * 4 * c * esz
+                say(f"edge_tex tables: {et.grid.n_tiles} tiles of {et.grid.tile_h}x{et.grid.tile_w}, {e_rows} slots "
+                    f"in use (capacity {e_cap}, fullest tile {int(et.counts.max())}), row width {w_row}; textured "
+                    f"slots paint {tex_visits} (pixel, slot) pairs, {tap_bytes} bytes of taps")
+                out["edge_tex_fwd"].update(
+                    ms=time_ms(lambda: etk.edge_tex_fwd(*args), 50, device),
+                    plain_ms=time_ms(lambda: etk.edge_tex_fwd(*args, impl="reference"), 3, device),
+                    bound=bound_ms(e_rows * w_row * esz + p_e * esz * (2 * c + 1) + tap_bytes,
+                                   e_visits * OPS_PER_VISIT["edge_tex_fwd"]),
+                )
+                out["edge_tex_bwd"].update(
+                    ms=time_ms(lambda: etk.edge_tex_bwd(*bargs), 20, device),
+                    plain_ms=time_ms(lambda: etk.edge_tex_bwd(*bargs, impl="reference"), 3, device),
+                    bound=bound_ms(e_rows * (w_row + 12 + 3 * c) * esz + p_e * esz * (3 * c + 1) + 2 * tap_bytes
+                                   + texture.numel() * esz,
+                                   e_visits * OPS_PER_VISIT["edge_tex_bwd"]),
+                )
+    return out
+
+
+DUCK_PARAMS = ("ij", "uv", "shade", "texture")
+
+
+def duck_loss_and_grads(scene, obs, impl, check_capacity=False):
+    """The duck loss Σ (render − obs)² with its gradients to ij, uv, shade
+    and texture → (image, z-buffer, loss, gradients by name)."""
+    from deodr_tpu_torch import duck_scene as ds
+    from deodr_tpu_torch import render_scene
+
+    leaves = {k: getattr(scene, k).detach().clone().requires_grad_(True) for k in DUCK_PARAMS}
+    image, z_buffer, _ = render_scene(
+        dataclasses.replace(scene, **leaves), ds.DUCK_SIGMA, aa_edge_capacity=ds.DUCK_AA_EDGE_CAPACITY,
+        tiling=ds.DUCK_TILING, aa_tex_plan=ds.DUCK_TEX_PLAN, impl=impl, check_capacity=check_capacity,
+    )
+    loss = ((image - obs) ** 2).sum()
+    grads = torch.autograd.grad(loss, [leaves[k] for k in DUCK_PARAMS])
+    return image.detach(), z_buffer, loss.detach(), dict(zip(DUCK_PARAMS, grads))
+
+
+def duck_main_path(scene, obs, say):
+    """The duck's fwd+bwd on the kernels against impl='reference', every
+    capacity of the plan checked."""
+    img_k, z_k, l_k, g_k = duck_loss_and_grads(scene, obs, "kernel", check_capacity=True)
+    img_r, z_r, l_r, g_r = duck_loss_and_grads(scene, obs, "reference", check_capacity=True)
+    fin = torch.isfinite(z_r)
+    check(torch.equal(fin, torch.isfinite(z_k)), "duck: coverage differs from the plain versions")
+    check(tuple(img_k.shape) == (scene.height, scene.width, 3) and bool(torch.isfinite(img_k).all()),
+          "duck: the image is not finite or has the wrong shape")
+    e_img, e_z = max_err(img_k, img_r), max_err(z_k[fin], z_r[fin])
+    errs = {k: rel_err(g_k[k], g_r[k]) for k in DUCK_PARAMS}
+    say(f"duck main path: loss {float(l_k):.4f} vs {float(l_r):.4f}, image err {e_img:.3g} (limit 1e-4), "
+        f"z err {e_z:.3g} (limit 1e-5), covered pixels {int(fin.sum())}; gradient err of scale (limit 1e-3): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    check(all(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0 for g in g_k.values()),
+          "duck: a gradient is non-finite or all zero")
+    check(e_img <= 1e-4 and e_z <= 1e-5 and all(v <= 1e-3 for v in errs.values()),
+          "duck: kernels disagree with the plain versions")
+
+
+def duck_train(scene, obs, say, steps=6):
+    """A few descent steps on the duck loss over (ij, uv, shade, texture),
+    each parameter with a step normalised by its first gradient."""
+    params = {k: getattr(scene, k).detach().clone() for k in DUCK_PARAMS}
+    first_step = {"ij": 0.05, "uv": 0.05, "shade": 0.01, "texture": 0.01}  # largest move of the first step
+    rates, losses = {}, []
+    for _ in range(steps):
+        _, _, loss, grads = duck_loss_and_grads(dataclasses.replace(scene, **params), obs, "kernel")
+        for k in DUCK_PARAMS:
+            if k not in rates:
+                rates[k] = first_step[k] / max(float(grads[k].abs().max()), 1e-12)
+            params[k] = params[k] - rates[k] * grads[k]
+        losses.append(float(loss))
+    say("duck descent losses: " + " ".join(f"{v:.3f}" for v in losses))
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], "the duck descent did not lower the loss")
+    return losses
+
+
+def run_duck(device, say):
+    """Phase 4; returns (per-kernel measurements, launches on the duck's
+    main path, median step ms)."""
+    from deodr_tpu_torch import duck_scene as ds
+    from deodr_tpu_torch import render_scene, scene_buffers_from_numpy
+    from deodr_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    fields = ds.duck_scene_fields()
+    height, width = fields["height"], fields["width"]
+    scene = scene_buffers_from_numpy(fields, device=device, dtype=torch.float32)
+    say(f"duck scene: {fields['faces'].shape[0]} faces, {fields['ij'].shape[0]} vertices, {fields['uv'].shape[0]} uv "
+        f"vertices, texture {tuple(fields['texture'].shape)}, {width}x{height}, {int(fields['edgeflags'].sum())} "
+        f"silhouette edges, built in {time.perf_counter() - t0:.1f} s")
+    say(f"duck plan: aa_edge_capacity={ds.DUCK_AA_EDGE_CAPACITY}, {ds.DUCK_TILING}, {ds.DUCK_TEX_PLAN}")
+    with torch.no_grad():
+        image, _, _ = render_scene(scene, ds.DUCK_SIGMA, aa_edge_capacity=ds.DUCK_AA_EDGE_CAPACITY,
+                                   tiling=ds.DUCK_TILING, aa_tex_plan=ds.DUCK_TEX_PLAN)
+    obs = (image + 0.05).clamp(0.0, 1.0)
+
+    measured = check_tex_kernels(scene, obs, device, say)
+
+    kernels.reset_launches()
+    duck_main_path(scene, obs, say)
+    launches = dict(kernels.LAUNCHES)
+    say(f"launches on the duck's main path: {launches}")
+    for name in ("raster_fwd", "raster_bwd", "edge_tex_fwd", "edge_tex_bwd"):
+        check(device.type != "cuda" or launches[name] > 0, f"{name} was never launched on the duck's main path")
+
+    duck_train(scene, obs, say)
+
+    def step():
+        duck_loss_and_grads(scene, obs, "kernel")
+
+    ms = median_step_ms(step, device)
+    say(f"duck fwd+bwd step sigma={ds.DUCK_SIGMA:g}: median {ms:.4f} ms, {height * width / (ms * 1e-3) / 1e6:.2f} Mpix/s")
+    profile_step(step, "duck", device, say)
+    return measured, launches, ms
 
 
 def run(device="cuda", height=512, width=512, n_tri=200, smi_line=None):
-    """All phases; raises on any miss. Returns the kernels record."""
+    """All phases; raises on any miss. Returns the kernels record and the
+    step times. A smaller bench scene only serves a rehearsal on the CPU;
+    the duck always runs at its full size, which its plan is made for."""
     from deodr_tpu_torch import scene_buffers_from_numpy, suggest_tiling
     from deodr_tpu_torch.bench_scene import bench_scene_fields
     from deodr_tpu_torch.ops import kernels
@@ -345,6 +563,7 @@ def run(device="cuda", height=512, width=512, n_tri=200, smi_line=None):
         kernels.library()
         say(f"build: {path.name} in {time.perf_counter() - t0:.1f} s")
 
+    # 3. the untextured path on the bench scene
     fields = bench_scene_fields(height, width, n_tri)
     scene = scene_buffers_from_numpy(fields, device=device, dtype=torch.float32)
     tiling = suggest_tiling(fields["ij"], fields["faces"], height, width, sigma=1.0,
@@ -352,34 +571,38 @@ def run(device="cuda", height=512, width=512, n_tri=200, smi_line=None):
     say(f"tiling: {tiling}")
     obs = torch.from_numpy(np.random.RandomState(3).rand(height, width, 3).astype(np.float32)).to(device)
 
-    # 3. each kernel against its plain version
-    measured = check_kernels(scene, tiling, obs, device, say)
+    measured = {"bench": check_kernels(scene, tiling, obs, device, say)}
 
-    # 4. the main path, with launch counts zeroed just before and read just after
+    # the main path, with launch counts zeroed just before and read just after
     kernels.reset_launches()
     main_path(scene, tiling, obs, say)
-    launches = dict(kernels.LAUNCHES)
-    say(f"launches on the main path: {launches}")
-    for name in kernels.KERNEL_NAMES:
-        check(device.type != "cuda" or launches[name] > 0, f"{name} was never launched on the main path")
+    launches = {"bench": dict(kernels.LAUNCHES)}
+    say(f"launches on the main path: {launches['bench']}")
+    for name in ("raster_fwd", "raster_bwd", "edge_fwd", "edge_bwd"):
+        check(device.type != "cuda" or launches["bench"][name] > 0, f"{name} was never launched on the main path")
 
-    # 5. trainer and step times
     train(scene, tiling, device, say)
     ms = step_times(scene, tiling, obs, device)
     for sigma, t in ms.items():
         say(f"fwd+bwd step sigma={sigma:g}: median {t:.4f} ms, {height * width / (t * 1e-3) / 1e6:.2f} Mpix/s")
-    profile_step(scene, tiling, obs, device, say)
+    profile_step(lambda: loss_and_grads(scene, 1.0, tiling, obs, False, "kernel", check_capacity=False),
+                 "sigma=1", device, say)
 
-    # 6. kernels line
+    # 4. the textured path on the duck
+    measured["duck"], launches["duck"], ms["duck"] = run_duck(device, say)
+
+    # 5. kernels line: one record per kernel and main path that launches it (the raster kernels
+    # run on both, with 3 attribute planes on the bench scene and 7 on the duck)
     record = []
     for name in kernels.KERNEL_NAMES:
-        m = measured[name]
         source, replaces = KERNEL_SOURCES[name]
-        record.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces, launches=launches[name],
-            max_abs_err=m["max_abs_err"], ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound"][0],
-            bound_by=m["bound"][1], library_ms=None,
-        ))
+        for path_name in KERNEL_PATHS[name]:
+            m = measured[path_name][name]
+            record.append(dict(
+                name=name, path=path_name, route="cuda", source=source, replaces=replaces,
+                launches=launches[path_name][name], max_abs_err=m["max_abs_err"], ms=m["ms"], plain_ms=m["plain_ms"],
+                bound_ms=m["bound"][0], bound_by=m["bound"][1], library_ms=None,
+            ))
     print(json.dumps({"kernels": record}), flush=True)
     return record, ms
 

@@ -32,29 +32,6 @@
 
 namespace deodr {
 
-constexpr int kEdgeChunk = 32;  // edge rows staged in shared memory at a time
-constexpr double kTDivEps = 1e-6;
-
-template <typename T>
-__device__ __forceinline__ T plane3(const T* c, T x, T y) {
-  return c[0] * x + (c[1] * y + c[2]);
-}
-
-// Blend mask and transparency of one edge row at pixel (x, y); row layout
-// in edge_kernel.py. T is 0.5 where the mask is off, as on the TPU.
-template <typename T, int C>
-__device__ __forceinline__ bool band_mask(const T* r, T x, T y, T zb, T& t) {
-  t = plane3(r + 16, x, y);
-  bool cov = true;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) cov = cov && (plane3(r + 3 * i, x, y) > r[12 + i]);
-  cov = cov && y >= r[19] && y <= r[20];
-  const T z = plane3(r + 21 + 3 * C, x, y);
-  const bool mask = cov && (z < zb) && (r[24 + 3 * C] > (T)0.5) && isfinite(t);
-  if (!mask) t = (T)0.5;
-  return mask;
-}
-
 template <typename T, int C, bool kErr>
 __global__ void __launch_bounds__(kThreads)
     edge_fwd_kernel(const T* __restrict__ table, const int* __restrict__ counts, const T* __restrict__ zbuf,
@@ -88,21 +65,10 @@ __global__ void __launch_bounds__(kThreads)
       const T* r = rows + k * W;
       T t;
       if (!band_mask<T, C>(r, x, y, zb, t)) continue;
-      if constexpr (kErr) {
-        T err = (T)0;
+      T a[C];
 #pragma unroll
-        for (int ch = 0; ch < C; ++ch) {
-          const T diff = plane3(r + 21 + 3 * ch, x, y) - ob[ch];
-          err = err + diff * diff;
-        }
-        buf[0] = err + t * (buf[0] - err);
-      } else {
-#pragma unroll
-        for (int ch = 0; ch < NCH; ++ch) {
-          const T a = plane3(r + 21 + 3 * ch, x, y);
-          buf[ch] = a + t * (buf[ch] - a);
-        }
-      }
+      for (int ch = 0; ch < C; ++ch) a[ch] = plane3(r + 21 + 3 * ch, x, y);
+      blend<T, C, kErr>(a, ob, t, buf);
     }
   }
   if (!px.inside) return;
@@ -126,8 +92,6 @@ __global__ void __launch_bounds__(kThreads)
   const size_t plane = (size_t)gridDim.x * tile_h * tile_w;
   const T x = (T)px.x, y = (T)px.y;
   const int count = min(counts[tile], cap);
-  const int lane = threadIdx.x & 31;
-  const T eps = (T)kTDivEps;
 
   T buf[NCH], gb[NCH], ob[C];
   T zb = (T)0;
@@ -153,57 +117,18 @@ __global__ void __launch_bounds__(kThreads)
       const T* r = rows + k * W;
       T t = (T)0.5;
       const bool mask = px.inside && band_mask<T, C>(r, x, y, zb, t);
-      T q[NQ];
+      T q[NQ];  // per-pixel cotangents of t and of the C colour planes
 #pragma unroll
       for (int i = 0; i < NQ; ++i) q[i] = (T)0;
       if (mask) {
-        const T td = fabs(t) < eps ? (t < (T)0 ? -eps : eps) : t;
-        const T rt = (T)1 / td;
-        const T one_minus_t = (T)1 - t;
         T a[C];
 #pragma unroll
         for (int ch = 0; ch < C; ++ch) a[ch] = plane3(r + 21 + 3 * ch, x, y);
-        if constexpr (kErr) {
-          T err = (T)0;
-#pragma unroll
-          for (int ch = 0; ch < C; ++ch) {
-            const T diff = a[ch] - ob[ch];
-            err = err + diff * diff;
-          }
-          const T before = (buf[0] - err) * rt + err;
-          const T g_o = gb[0];
-          q[0] = g_o * (before - err);
-          const T g_err = g_o * one_minus_t;
-#pragma unroll
-          for (int ch = 0; ch < C; ++ch) q[1 + ch] = g_err * (T)2 * (a[ch] - ob[ch]);
-          buf[0] = before;
-          gb[0] = t * g_o;
-        } else {
-          T g_t = (T)0;
-#pragma unroll
-          for (int ch = 0; ch < NCH; ++ch) {
-            const T before = (buf[ch] - a[ch]) * rt + a[ch];
-            const T g_o = gb[ch];
-            g_t = g_t + g_o * (before - a[ch]);
-            q[1 + ch] = g_o * one_minus_t;
-            buf[ch] = before;
-            gb[ch] = t * g_o;
-          }
-          q[0] = g_t;
-        }
+        q[0] = unblend<T, C, kErr>(a, ob, t, buf, gb, q + 1);
       }
       if (__any_sync(kFullMask, mask)) {
 #pragma unroll
-        for (int i = 0; i < NQ; ++i) {
-          const T sx = warp_sum(q[i] * x);
-          const T sy = warp_sum(q[i] * y);
-          const T sc = warp_sum(q[i]);
-          if (lane == 0) {
-            atomicAdd(&acc[k * GW + 3 * i], sx);
-            atomicAdd(&acc[k * GW + 3 * i + 1], sy);
-            atomicAdd(&acc[k * GW + 3 * i + 2], sc);
-          }
-        }
+        for (int i = 0; i < NQ; ++i) add_moments(&acc[k * GW + 3 * i], q[i], x, y);
       }
     }
     __syncthreads();

@@ -1,0 +1,387 @@
+// Tiled silhouette edge-overdraw pass for textured and mixed scenes: the
+// painter's blend of edge_kernel.cu where a slot's band colour is either its
+// affine colour planes (a plain slot) or a bilinear texture sample times an
+// affine Gouraud shade (a textured slot), forward and backward.
+//
+// Replaces deodr_tpu/ops/pallas/edge_tex_kernel.py: _fwd_kernel (called by
+// _tex_fwd_call) and _bwd_kernel (called by _tex_bwd).
+//
+// What is not carried over. The TPU has no vector gather, so its kernel
+// receives a stack of per-edge texture windows, samples them with soft
+// one-hot matrix contractions and sums window gradients that XLA scatters
+// back into the texture afterwards. Here every masked pixel of a textured
+// slot reads its four taps straight from the texture (channel-last,
+// (tex_h, tex_w, C); a 512² RGB float32 atlas is 3 MB and stays in the 50 MB
+// L2) and the backward adds the four texel gradients per channel with
+// atomicAdd into a texture-shaped buffer. The border rules are
+// bilinear_sample's, against the full texture: fu = floor(u); the weight
+// eu is 0 where fu < 0, 1 where fu > tex_w − 2, else u − fu; taps at
+// clamp(fu, 0, tex_w − 2); a clamped coordinate gets no gradient.
+//
+// What bounds it on the H100. As edge_kernel.cu, every pixel visits every
+// band binned to its tile and pays ~33 float operations for the band test;
+// only the few pixels inside a band pay for the fetch (three more planes,
+// 4·C loads) and, in the backward, for 4·C global atomics. The bytes are a
+// handful of planes per pixel, the table, the taps of the painted pixels
+// only (a few kB on a thin silhouette, not the texture) and, in the
+// backward, the dense texture gradient that the caller zero-fills. A scene
+// with many bands per tile is bound by operations, as the untextured pass
+// is; the duck's silhouette is thin (about 4 slots per 8×128 tile), and
+// there the frame's planes make the bytes the larger bound. Either
+// bound is a few microseconds, far below a launch. The hazards are the
+// latency of the dependent texel loads inside the sequential slot loop and
+// atomic contention where many band pixels share a texel (magnified
+// textures).
+//
+// What this first design does. The frame of edge_kernel.cu: one thread per
+// pixel, blocks of 256 pixels of one tile, rows staged in shared memory 32
+// at a time, the C colour planes (or the one residual plane) in registers.
+// A slot's textured flag is uniform over the block, so the colour branch
+// does not diverge. The backward reduces four moments rows for a textured
+// slot (t, u, v, shade) and 1 + C for a plain one into the slot's gradient
+// row [g_t 3 | g_a 3C | g_uc 3 | g_vc 3 | g_lc 3]; the caller zero-fills
+// the table, so the columns a slot does not own stay 0. Tap indices are
+// computed for masked pixels only and clamped with fmin/fmax, which drop a
+// NaN, so no index can leave the texture whatever an inactive row carries.
+// Compiled with -fmad=false: u, v and the shade plane round as in the
+// plain PyTorch version, so both read the same texels.
+
+#include "common.cuh"
+
+namespace deodr {
+
+// Bilinear footprint of one sample: offset of the top-left tap, the two
+// weights, and whether each coordinate is differentiable (not clamped).
+template <typename T>
+struct Footprint {
+  int i00;
+  T eu, ev;
+  bool gate_u, gate_v;
+};
+
+template <typename T>
+__device__ __forceinline__ Footprint<T> footprint_of(T u, T v, int tex_h, int tex_w) {
+  Footprint<T> f;
+  const T fu = floor(u), fv = floor(v);
+  const T u_max = (T)(tex_w - 2), v_max = (T)(tex_h - 2);
+  f.eu = fu < (T)0 ? (T)0 : (fu > u_max ? (T)1 : u - fu);
+  f.ev = fv < (T)0 ? (T)0 : (fv > v_max ? (T)1 : v - fv);
+  f.gate_u = fu >= (T)0 && fu <= u_max;
+  f.gate_v = fv >= (T)0 && fv <= v_max;
+  const int iu = (int)fmin(fmax(fu, (T)0), u_max);
+  const int iv = (int)fmin(fmax(fv, (T)0), v_max);
+  f.i00 = iv * tex_w + iu;
+  return f;
+}
+
+// Column offsets of the textured row after the 25 + 3C untextured columns.
+constexpr int kTexU = 0, kTexV = 3, kTexL = 6, kTexFlag = 9, kTexExtra = 10;
+
+template <typename T, int C, bool kErr>
+__global__ void __launch_bounds__(kThreads)
+    edge_tex_fwd_kernel(const T* __restrict__ table, const int* __restrict__ counts, const T* __restrict__ zbuf,
+                        const T* __restrict__ obs, const T* __restrict__ tex, const T* __restrict__ buf_in, int n_tx,
+                        int tile_h, int tile_w, int cap, int tex_h, int tex_w, T* __restrict__ buf_out) {
+  constexpr int W0 = 25 + 3 * C;
+  constexpr int W = W0 + kTexExtra;
+  constexpr int NCH = kErr ? 1 : C;
+  __shared__ T rows[kEdgeChunk * W];
+  const int tile = blockIdx.x;
+  const Pixel px = pixel_of(tile, n_tx, tile_h, tile_w);
+  const size_t plane = (size_t)gridDim.x * tile_h * tile_w;
+  const T x = (T)px.x, y = (T)px.y;
+  const int count = min(counts[tile], cap);
+
+  T buf[NCH], ob[C];
+  T zb = (T)0;
+#pragma unroll
+  for (int ch = 0; ch < NCH; ++ch) buf[ch] = px.inside ? buf_in[ch * plane + px.offset] : (T)0;
+#pragma unroll
+  for (int ch = 0; ch < C; ++ch) ob[ch] = (kErr && px.inside) ? obs[ch * plane + px.offset] : (T)0;
+  if (px.inside) zb = zbuf[px.offset];
+
+  const T* tile_rows = table + (size_t)tile * cap * W;
+  for (int base = 0; base < count; base += kEdgeChunk) {
+    const int n = min(kEdgeChunk, count - base);
+    __syncthreads();
+    for (int i = threadIdx.x; i < n * W; i += blockDim.x) rows[i] = tile_rows[(size_t)base * W + i];
+    __syncthreads();
+    if (!px.inside) continue;
+    for (int k = 0; k < n; ++k) {
+      const T* r = rows + k * W;
+      T t;
+      if (!band_mask<T, C>(r, x, y, zb, t)) continue;
+      T a[C];
+      if (r[W0 + kTexFlag] > (T)0.5) {
+        const T u = plane3(r + W0 + kTexU, x, y);
+        const T v = plane3(r + W0 + kTexV, x, y);
+        const T lum = plane3(r + W0 + kTexL, x, y);
+        const Footprint<T> f = footprint_of(u, v, tex_h, tex_w);
+        const T* t00 = tex + (size_t)f.i00 * C;
+        const T* t01 = t00 + (size_t)tex_w * C;
+        const T one_eu = (T)1 - f.eu, one_ev = (T)1 - f.ev;
+#pragma unroll
+        for (int ch = 0; ch < C; ++ch) {
+          const T top = one_eu * t00[ch] + f.eu * t00[C + ch];
+          const T bot = one_eu * t01[ch] + f.eu * t01[C + ch];
+          a[ch] = (top * one_ev + bot * f.ev) * lum;
+        }
+      } else {
+#pragma unroll
+        for (int ch = 0; ch < C; ++ch) a[ch] = plane3(r + 21 + 3 * ch, x, y);
+      }
+      blend<T, C, kErr>(a, ob, t, buf);
+    }
+  }
+  if (!px.inside) return;
+#pragma unroll
+  for (int ch = 0; ch < NCH; ++ch) buf_out[ch * plane + px.offset] = buf[ch];
+}
+
+template <typename T, int C, bool kErr>
+__global__ void __launch_bounds__(kThreads)
+    edge_tex_bwd_kernel(const T* __restrict__ table, const int* __restrict__ counts, const T* __restrict__ zbuf,
+                        const T* __restrict__ obs, const T* __restrict__ tex, const T* __restrict__ buf_final,
+                        const T* __restrict__ g_out, int n_tx, int tile_h, int tile_w, int cap, int tex_h, int tex_w,
+                        T* __restrict__ g_rows, T* __restrict__ g_buf0, T* __restrict__ g_tex) {
+  constexpr int W0 = 25 + 3 * C;
+  constexpr int W = W0 + kTexExtra;
+  constexpr int GW = 12 + 3 * C;
+  constexpr int GUV = 3 + 3 * C;  // first of the g_uc | g_vc | g_lc columns
+  constexpr int NCH = kErr ? 1 : C;
+  __shared__ T rows[kEdgeChunk * W];
+  __shared__ T acc[kEdgeChunk * GW];
+  const int tile = blockIdx.x;
+  const Pixel px = pixel_of(tile, n_tx, tile_h, tile_w);
+  const size_t plane = (size_t)gridDim.x * tile_h * tile_w;
+  const T x = (T)px.x, y = (T)px.y;
+  const int count = min(counts[tile], cap);
+
+  T buf[NCH], gb[NCH], ob[C];
+  T zb = (T)0;
+#pragma unroll
+  for (int ch = 0; ch < NCH; ++ch) {
+    buf[ch] = px.inside ? buf_final[ch * plane + px.offset] : (T)0;
+    gb[ch] = px.inside ? g_out[ch * plane + px.offset] : (T)0;
+  }
+#pragma unroll
+  for (int ch = 0; ch < C; ++ch) ob[ch] = (kErr && px.inside) ? obs[ch * plane + px.offset] : (T)0;
+  if (px.inside) zb = zbuf[px.offset];
+
+  const T* tile_rows = table + (size_t)tile * cap * W;
+  T* tile_grads = g_rows + (size_t)tile * cap * GW;
+  for (int hi = count; hi > 0; hi -= kEdgeChunk) {
+    const int lo = max(0, hi - kEdgeChunk);
+    const int n = hi - lo;
+    __syncthreads();
+    for (int i = threadIdx.x; i < n * W; i += blockDim.x) rows[i] = tile_rows[(size_t)lo * W + i];
+    for (int i = threadIdx.x; i < n * GW; i += blockDim.x) acc[i] = (T)0;
+    __syncthreads();
+    for (int k = n - 1; k >= 0; --k) {
+      const T* r = rows + k * W;
+      T t = (T)0.5;
+      const bool mask = px.inside && band_mask<T, C>(r, x, y, zb, t);
+      const bool any = __any_sync(kFullMask, mask);
+      T g_t = (T)0;
+      T g_a[C];
+#pragma unroll
+      for (int ch = 0; ch < C; ++ch) g_a[ch] = (T)0;
+      if (r[W0 + kTexFlag] > (T)0.5) {  // textured slot (uniform over the block)
+        T g_u = (T)0, g_v = (T)0, g_lum = (T)0;
+        if (mask) {
+          const T u = plane3(r + W0 + kTexU, x, y);
+          const T v = plane3(r + W0 + kTexV, x, y);
+          const T lum = plane3(r + W0 + kTexL, x, y);
+          const Footprint<T> f = footprint_of(u, v, tex_h, tex_w);
+          const size_t o00 = (size_t)f.i00 * C, o01 = o00 + (size_t)tex_w * C;
+          const T one_eu = (T)1 - f.eu, one_ev = (T)1 - f.ev;
+          T a[C], sample[C], d_u[C], d_v[C];
+#pragma unroll
+          for (int ch = 0; ch < C; ++ch) {
+            const T t00 = tex[o00 + ch], t10 = tex[o00 + C + ch];
+            const T t01 = tex[o01 + ch], t11 = tex[o01 + C + ch];
+            const T top = one_eu * t00 + f.eu * t10;
+            const T bot = one_eu * t01 + f.eu * t11;
+            sample[ch] = top * one_ev + bot * f.ev;
+            d_u[ch] = (t10 - t00) * one_ev + (t11 - t01) * f.ev;
+            d_v[ch] = bot - top;
+            a[ch] = sample[ch] * lum;
+          }
+          g_t = unblend<T, C, kErr>(a, ob, t, buf, gb, g_a);
+#pragma unroll
+          for (int ch = 0; ch < C; ++ch) {
+            g_lum = g_lum + g_a[ch] * sample[ch];
+            const T g_s = g_a[ch] * lum;
+            g_u = g_u + g_s * d_u[ch];
+            g_v = g_v + g_s * d_v[ch];
+            atomicAdd(&g_tex[o00 + ch], g_s * (one_eu * one_ev));
+            atomicAdd(&g_tex[o00 + C + ch], g_s * (f.eu * one_ev));
+            atomicAdd(&g_tex[o01 + ch], g_s * (one_eu * f.ev));
+            atomicAdd(&g_tex[o01 + C + ch], g_s * (f.eu * f.ev));
+          }
+          if (!f.gate_u) g_u = (T)0;
+          if (!f.gate_v) g_v = (T)0;
+        }
+        if (any) {
+          add_moments(&acc[k * GW], g_t, x, y);
+          add_moments(&acc[k * GW + GUV], g_u, x, y);
+          add_moments(&acc[k * GW + GUV + 3], g_v, x, y);
+          add_moments(&acc[k * GW + GUV + 6], g_lum, x, y);
+        }
+      } else {
+        if (mask) {
+          T a[C];
+#pragma unroll
+          for (int ch = 0; ch < C; ++ch) a[ch] = plane3(r + 21 + 3 * ch, x, y);
+          g_t = unblend<T, C, kErr>(a, ob, t, buf, gb, g_a);
+        }
+        if (any) {
+          add_moments(&acc[k * GW], g_t, x, y);
+#pragma unroll
+          for (int ch = 0; ch < C; ++ch) add_moments(&acc[k * GW + 3 + 3 * ch], g_a[ch], x, y);
+        }
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < n * GW; i += blockDim.x) {
+      const T v = acc[i];
+      if (v != (T)0) atomicAdd(&tile_grads[(size_t)lo * GW + i], v);
+    }
+  }
+  if (!px.inside) return;
+#pragma unroll
+  for (int ch = 0; ch < NCH; ++ch) g_buf0[ch * plane + px.offset] = gb[ch];
+}
+
+template <typename T>
+struct TexArgs {
+  const T *table, *zbuf, *obs, *tex;
+  const int* counts;
+  int n_tx, tile_h, tile_w, cap, tex_h, tex_w;
+};
+
+template <typename T, int C, bool kErr>
+static void tex_fwd_launch(dim3 grid, cudaStream_t s, const TexArgs<T>& a, const T* buf_in, T* buf_out) {
+  edge_tex_fwd_kernel<T, C, kErr><<<grid, kThreads, 0, s>>>(a.table, a.counts, a.zbuf, a.obs, a.tex, buf_in, a.n_tx,
+                                                             a.tile_h, a.tile_w, a.cap, a.tex_h, a.tex_w, buf_out);
+}
+
+template <typename T, int C, bool kErr>
+static void tex_bwd_launch(dim3 grid, cudaStream_t s, const TexArgs<T>& a, const T* buf_final, const T* g_out,
+                           T* g_rows, T* g_buf0, T* g_tex) {
+  edge_tex_bwd_kernel<T, C, kErr><<<grid, kThreads, 0, s>>>(a.table, a.counts, a.zbuf, a.obs, a.tex, buf_final, g_out,
+                                                             a.n_tx, a.tile_h, a.tile_w, a.cap, a.tex_h, a.tex_w,
+                                                             g_rows, g_buf0, g_tex);
+}
+
+// Calls f.template operator()<C, kErr>() for the run-time (c, err).
+template <typename F>
+static bool dispatch_c_err(int c, bool err, F f) {
+  switch (c) {
+    case 1: err ? f.template operator()<1, true>() : f.template operator()<1, false>(); return true;
+    case 2: err ? f.template operator()<2, true>() : f.template operator()<2, false>(); return true;
+    case 3: err ? f.template operator()<3, true>() : f.template operator()<3, false>(); return true;
+    case 4: err ? f.template operator()<4, true>() : f.template operator()<4, false>(); return true;
+    default: return false;
+  }
+}
+
+template <typename T>
+struct TexFwdCall {
+  dim3 grid;
+  cudaStream_t s;
+  TexArgs<T> a;
+  const T* buf_in;
+  T* buf_out;
+  template <int C, bool kErr>
+  void operator()() const {
+    tex_fwd_launch<T, C, kErr>(grid, s, a, buf_in, buf_out);
+  }
+};
+
+template <typename T>
+struct TexBwdCall {
+  dim3 grid;
+  cudaStream_t s;
+  TexArgs<T> a;
+  const T *buf_final, *g_out;
+  T *g_rows, *g_buf0, *g_tex;
+  template <int C, bool kErr>
+  void operator()() const {
+    tex_bwd_launch<T, C, kErr>(grid, s, a, buf_final, g_out, g_rows, g_buf0, g_tex);
+  }
+};
+
+template <typename T>
+static int edge_tex_fwd_launch(const void* table, const void* counts, const void* zbuf, const void* obs,
+                               const void* tex, const void* buf_in, int n_tiles, int n_tx, int tile_h, int tile_w,
+                               int cap, int c, int err, int tex_h, int tex_w, void* buf_out, void* stream) {
+  const int n_px = tile_h * tile_w;
+  if (n_tiles == 0 || n_px == 0) return 0;
+  if (tex_h < 2 || tex_w < 2) return (int)cudaErrorInvalidValue;
+  TexFwdCall<T> call;
+  call.grid = dim3(n_tiles, (n_px + kThreads - 1) / kThreads);
+  call.s = (cudaStream_t)stream;
+  call.a = TexArgs<T>{(const T*)table, (const T*)zbuf, (const T*)obs, (const T*)tex, (const int*)counts,
+                      n_tx, tile_h, tile_w, cap, tex_h, tex_w};
+  call.buf_in = (const T*)buf_in;
+  call.buf_out = (T*)buf_out;
+  if (!dispatch_c_err(c, err != 0, call)) return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int edge_tex_bwd_launch(const void* table, const void* counts, const void* zbuf, const void* obs,
+                               const void* tex, const void* buf_final, const void* g_out, int n_tiles, int n_tx,
+                               int tile_h, int tile_w, int cap, int c, int err, int tex_h, int tex_w, void* g_rows,
+                               void* g_buf0, void* g_tex, void* stream) {
+  const int n_px = tile_h * tile_w;
+  if (n_tiles == 0 || n_px == 0) return 0;
+  if (tex_h < 2 || tex_w < 2) return (int)cudaErrorInvalidValue;
+  TexBwdCall<T> call;
+  call.grid = dim3(n_tiles, (n_px + kThreads - 1) / kThreads);
+  call.s = (cudaStream_t)stream;
+  call.a = TexArgs<T>{(const T*)table, (const T*)zbuf, (const T*)obs, (const T*)tex, (const int*)counts,
+                      n_tx, tile_h, tile_w, cap, tex_h, tex_w};
+  call.buf_final = (const T*)buf_final;
+  call.g_out = (const T*)g_out;
+  call.g_rows = (T*)g_rows;
+  call.g_buf0 = (T*)g_buf0;
+  call.g_tex = (T*)g_tex;
+  if (!dispatch_c_err(c, err != 0, call)) return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace deodr
+
+extern "C" {
+
+int edge_tex_fwd_f32(const void* table, const void* counts, const void* zbuf, const void* obs, const void* tex,
+                     const void* buf_in, int n_tiles, int n_tx, int tile_h, int tile_w, int cap, int c, int err,
+                     int tex_h, int tex_w, void* buf_out, void* stream) {
+  return deodr::edge_tex_fwd_launch<float>(table, counts, zbuf, obs, tex, buf_in, n_tiles, n_tx, tile_h, tile_w, cap, c,
+                                           err, tex_h, tex_w, buf_out, stream);
+}
+
+int edge_tex_fwd_f64(const void* table, const void* counts, const void* zbuf, const void* obs, const void* tex,
+                     const void* buf_in, int n_tiles, int n_tx, int tile_h, int tile_w, int cap, int c, int err,
+                     int tex_h, int tex_w, void* buf_out, void* stream) {
+  return deodr::edge_tex_fwd_launch<double>(table, counts, zbuf, obs, tex, buf_in, n_tiles, n_tx, tile_h, tile_w, cap,
+                                            c, err, tex_h, tex_w, buf_out, stream);
+}
+
+int edge_tex_bwd_f32(const void* table, const void* counts, const void* zbuf, const void* obs, const void* tex,
+                     const void* buf_final, const void* g_out, int n_tiles, int n_tx, int tile_h, int tile_w, int cap,
+                     int c, int err, int tex_h, int tex_w, void* g_rows, void* g_buf0, void* g_tex, void* stream) {
+  return deodr::edge_tex_bwd_launch<float>(table, counts, zbuf, obs, tex, buf_final, g_out, n_tiles, n_tx, tile_h,
+                                           tile_w, cap, c, err, tex_h, tex_w, g_rows, g_buf0, g_tex, stream);
+}
+
+int edge_tex_bwd_f64(const void* table, const void* counts, const void* zbuf, const void* obs, const void* tex,
+                     const void* buf_final, const void* g_out, int n_tiles, int n_tx, int tile_h, int tile_w, int cap,
+                     int c, int err, int tex_h, int tex_w, void* g_rows, void* g_buf0, void* g_tex, void* stream) {
+  return deodr::edge_tex_bwd_launch<double>(table, counts, zbuf, obs, tex, buf_final, g_out, n_tiles, n_tx, tile_h,
+                                            tile_w, cap, c, err, tex_h, tex_w, g_rows, g_buf0, g_tex, stream);
+}
+
+}  // extern "C"

@@ -2,7 +2,7 @@
 float32-safe barycentric matrices.
 
 PyTorch counterpart of the subset of ``deodr_tpu/ops/common.py`` that the
-tiled untextured render path uses. Gathers are plain indexing here: autograd
+tiled render path uses, with the bilinear texture fetch. Gathers are plain indexing here: autograd
 turns them into ``index_add`` in the backward, which is what the JAX
 package's ``gather_rows_mm`` one-hot contraction emulates on the TPU.
 Small contractions (3 terms) are written out as sums of products, so no
@@ -116,3 +116,50 @@ def sum3(a: torch.Tensor, dim: int) -> torch.Tensor:
     every device, where ``Tensor.sum`` may reduce in another order."""
     x0, x1, x2 = a.unbind(dim)
     return x0 + x1 + x2
+
+
+def bilinear_taps(texture: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+    """The 2×2 footprint of a bilinear fetch at column coordinate ``u`` and
+    row coordinate ``v`` (same shape) in ``texture`` (th, tw, C) →
+    (eu, ev, idx, (t00, t10, t01, t11)): the weights of the second column
+    and row, the flat index ``row·tw + column`` of the first tap, and the
+    four taps (..., C), tXY at column X, row Y of the footprint.
+
+    Integer texel centers with border clamp: ``fu = floor(u)``, ``eu`` is 0
+    where ``fu < 0``, 1 where ``fu > tw − 2``, else ``u − fu`` (so a
+    clamped coordinate gets no gradient), and the first tap sits at
+    ``clip(fu, 0, tw − 2)``. A non-finite coordinate reads the first or the
+    last footprint, never outside the texture. The taps are fetched
+    directly; autograd accumulates the texture gradient over overlapping
+    footprints (``index_add_``).
+    """
+    th, tw, c = texture.shape
+    fu, fv = torch.floor(u), torch.floor(v)
+    eu = torch.where(fu < 0, 0.0, torch.where(fu > tw - 2, 1.0, u - fu))
+    ev = torch.where(fv < 0, 0.0, torch.where(fv > th - 2, 1.0, v - fv))
+    # nan_to_num before the cast: a NaN cast to an integer is undefined
+    iu = torch.nan_to_num(fu.detach(), nan=0.0).clamp(0, tw - 2).to(torch.int64)
+    iv = torch.nan_to_num(fv.detach(), nan=0.0).clamp(0, th - 2).to(torch.int64)
+    idx = iv * tw + iu
+    flat = texture.reshape(th * tw, c)
+    flat_idx = idx.reshape(-1)
+    shape = u.shape + (c,)
+    taps = tuple(flat.index_select(0, flat_idx + off).reshape(shape) for off in (0, 1, tw, tw + 1))
+    return eu, ev, idx, taps
+
+
+def bilinear_blend(eu: torch.Tensor, ev: torch.Tensor, taps) -> torch.Tensor:
+    """The bilinear blend of the four taps of :func:`bilinear_taps` with
+    weights eu, ev broadcastable to a tap, in the one operation order every
+    sampler of the package (and the CUDA kernel) uses."""
+    t00, t10, t01, t11 = taps
+    return ((1 - eu) * t00 + eu * t10) * (1 - ev) + ((1 - eu) * t01 + eu * t11) * ev
+
+
+def bilinear_sample(texture: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Bilinear texture fetch: texture (th, tw, C), p (..., 2) → (..., C).
+    ``p[..., 0]`` indexes columns (u), ``p[..., 1]`` rows (v); the sample at
+    (0.0, 0.0) is exactly ``texture[0, 0]``; see :func:`bilinear_taps` for
+    the border rules."""
+    eu, ev, _, taps = bilinear_taps(texture, p[..., 0], p[..., 1])
+    return bilinear_blend(eu[..., None], ev[..., None], taps)

@@ -25,12 +25,9 @@ from typing import NamedTuple
 
 import torch
 
-KERNEL_NAMES = ("raster_fwd", "raster_bwd", "edge_fwd", "edge_bwd")
-LAUNCHES = {name: 0 for name in KERNEL_NAMES}
-
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
-SOURCES = ("raster_kernel.cu", "edge_kernel.cu")
+SOURCES = ("raster_kernel.cu", "edge_kernel.cu", "edge_tex_kernel.cu")
 
 # In a source checkout the library goes to build/kernels/ beside the package;
 # an installed copy builds under the user's cache instead of site-packages.
@@ -62,7 +59,16 @@ _SIGNATURES = {
     # table, counts, zbuf, obs, buf_final, g_out, n_tiles, n_tx, tile_h, tile_w, cap, C, err,
     # g_table, g_buf0, stream
     "edge_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    # table, counts, zbuf, obs, texture, buf_in, n_tiles, n_tx, tile_h, tile_w, cap, C, err, tex_h, tex_w,
+    # buf_out, stream
+    "edge_tex_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
+    # table, counts, zbuf, obs, texture, buf_final, g_out, n_tiles, n_tx, tile_h, tile_w, cap, C, err,
+    # tex_h, tex_w, g_table, g_buf0, g_texture, stream
+    "edge_tex_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
 }
+# every kernel that can be launched is counted: the names are the entry points'
+KERNEL_NAMES = tuple(_SIGNATURES)
+LAUNCHES = {name: 0 for name in KERNEL_NAMES}
 _DTYPE_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 _lib = None

@@ -89,6 +89,36 @@ def _sq_residual(a, obs_t):
     return err
 
 
+def _unblend(mask, t, a, bufs, gbufs, obs_t, error_mode):
+    """One reverse painter's step on every tile, for band colours ``a``
+    (C planes): rebuilds the pre-blend buffers as (buf − A)·(1/T) + A,
+    scales the carried cotangents by T on the mask, and returns
+    (g_t, [g_a per channel], bufs, gbufs) with the per-pixel cotangents of
+    T and of the colour planes (0 off the mask)."""
+    rt = 1.0 / _t_div(t)
+    one_minus_t = 1.0 - t
+    if error_mode:
+        err = _sq_residual(a, obs_t)
+        before = torch.where(mask, (bufs[0] - err) * rt + err, bufs[0])
+        g_o = gbufs[0]
+        g_m = torch.where(mask, g_o, 0.0)
+        g_t = g_m * (before - err)
+        g_err = g_m * one_minus_t
+        g_as = [g_err * 2.0 * (a[ch] - obs_t[:, ch]) for ch in range(len(a))]
+        return g_t, g_as, [before], [torch.where(mask, t * g_o, g_o)]
+    g_t = torch.zeros_like(t)
+    g_as, new_bufs, new_gbufs = [], [], []
+    for ch, a_ch in enumerate(a):
+        before = torch.where(mask, (bufs[ch] - a_ch) * rt + a_ch, bufs[ch])
+        g_o = gbufs[ch]
+        g_m = torch.where(mask, g_o, 0.0)
+        g_t = g_t + g_m * (before - a_ch)
+        g_as.append(g_m * one_minus_t)
+        new_bufs.append(before)
+        new_gbufs.append(torch.where(mask, t * g_o, g_o))
+    return g_t, g_as, new_bufs, new_gbufs
+
+
 def edge_fwd_reference(table_tile, buffer0, z_pad, obs_pad, counts, grid: TileGrid, error_mode: bool):
     """Plain version of the forward kernel; differentiable in
     ``table_tile`` and ``buffer0`` by autograd."""
@@ -130,31 +160,8 @@ def edge_bwd_reference(table_tile, final, z_pad, obs_pad, g_out, counts, grid: T
         row = table_tile[:, k, :, None, None]
         mask, t = _band_mask_and_t(row, yy, xx, zb, c)
         mask = mask & (k < count)[:, None, None]
-        rt = 1.0 / _t_div(t)
-        one_minus_t = 1.0 - t
         a = [_plane(row, _E_A + 3 * ch, yy, xx) for ch in range(c)]
-        if error_mode:
-            err = _sq_residual(a, obs_t)
-            before = torch.where(mask, (bufs[0] - err) * rt + err, bufs[0])
-            g_o = gbufs[0]
-            g_m = torch.where(mask, g_o, 0.0)
-            g_t = g_m * (before - err)
-            g_err = g_m * one_minus_t
-            g_as = [g_err * 2.0 * (a[ch] - obs_t[:, ch]) for ch in range(c)]
-            bufs = [before]
-            gbufs = [torch.where(mask, t * g_o, g_o)]
-        else:
-            g_t = torch.zeros_like(t)
-            g_as, new_bufs, new_gbufs = [], [], []
-            for ch in range(c):
-                before = torch.where(mask, (bufs[ch] - a[ch]) * rt + a[ch], bufs[ch])
-                g_o = gbufs[ch]
-                g_m = torch.where(mask, g_o, 0.0)
-                g_t = g_t + g_m * (before - a[ch])
-                g_as.append(g_m * one_minus_t)
-                new_bufs.append(before)
-                new_gbufs.append(torch.where(mask, t * g_o, g_o))
-            bufs, gbufs = new_bufs, new_gbufs
+        g_t, g_as, bufs, gbufs = _unblend(mask, t, a, bufs, gbufs, obs_t, error_mode)
         for q, g in enumerate([g_t] + g_as):
             g_rows[:, k, 3 * q] = (g * xx).sum(dim=(1, 2))
             g_rows[:, k, 3 * q + 1] = (g * yy).sum(dim=(1, 2))

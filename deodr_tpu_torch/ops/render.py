@@ -2,9 +2,11 @@
 
 PyTorch counterpart of ``deodr_tpu/ops/render.py``, tiled branch: one
 function, differentiable by autograd with respect to the vertex positions
-(``ij``), the per-vertex colors and the background. It renders untextured,
-not perspective-correct scenes with ``strict_edge``; the other modes belong
-to later parts of the port and raise ``NotImplementedError``.
+(``ij``), the per-vertex colors, the texture coordinates (``uv``), the
+Gouraud ``shade``, the ``texture`` and the background. It renders
+untextured, textured and mixed scenes that are not perspective-correct,
+with ``strict_edge``; the other modes belong to later parts of the port and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -17,7 +19,14 @@ import torch
 
 from deodr_tpu_torch.ops.common import sum3
 from deodr_tpu_torch.ops.edge_aa import EdgeAAConfig, EdgeData
-from deodr_tpu_torch.ops.tiled import TilingConfig, _compact_index_perm, edge_pass_tiled_kernel, rasterize_tiled_kernel
+from deodr_tpu_torch.ops.tiled import (
+    EdgeTexPlan,
+    TilingConfig,
+    _compact_index_perm,
+    edge_pass_tiled_kernel,
+    edge_pass_tiled_kernel_tex,
+    rasterize_tiled_kernel,
+)
 
 
 @dataclasses.dataclass
@@ -113,17 +122,26 @@ def prepare(scene: SceneBuffers):
     return ij_off, signed_area_v, draw, background
 
 
-def _refuse_off_slice(scene: SceneBuffers, tiling, aa_window, aa_tex_window, aa_tex_plan):
+def _refuse_off_slice(scene: SceneBuffers, sigma, tiling, aa_window, aa_tex_window, aa_tex_plan):
+    """Raise for what needs the untiled (sequential) passes, which this
+    package does not have yet."""
     if tiling is None:
         raise NotImplementedError("the untiled path (tiling=None) comes with the untiled-renderer slice")
-    if scene.texture is not None:
-        raise NotImplementedError("textured rendering comes with the textured slice (edge_tex_kernel)")
     if scene.perspective_correct:
-        raise NotImplementedError("perspective-correct interpolation comes with the textured slice")
+        raise NotImplementedError(
+            "perspective-correct interpolation comes with the untiled-renderer slice (its edge pass is sequential)"
+        )
     if not scene.strict_edge:
         raise NotImplementedError("strict_edge=False comes with the untiled-renderer slice")
-    if aa_window is not None or aa_tex_window is not None or aa_tex_plan is not None:
-        raise NotImplementedError("aa_window / aa_tex_window / aa_tex_plan come with the textured slice")
+    if aa_window is not None or aa_tex_window is not None:
+        raise NotImplementedError("aa_window / aa_tex_window come with the untiled-renderer slice")
+    if scene.texture is not None and sigma > 0 and aa_tex_plan is None:
+        raise NotImplementedError(
+            "a textured scene at sigma > 0 needs aa_tex_plan (an EdgeTexPlan) for the tiled textured edge pass; "
+            "without one it takes the sequential pass of the untiled-renderer slice"
+        )
+    if scene.texture is not None and scene.texture.shape[2] != scene.colors.shape[1]:
+        raise ValueError("texture and colors must have the same number of channels")
 
 
 def render_scene(
@@ -136,7 +154,7 @@ def render_scene(
     impl: str = "kernel",
     aa_window: Optional[tuple] = None,
     aa_tex_window: Optional[tuple] = None,
-    aa_tex_plan=None,
+    aa_tex_plan: Optional[EdgeTexPlan] = None,
     check_capacity: bool = False,
 ):
     """Render a 2.5D scene on the scene tensors' device.
@@ -145,14 +163,17 @@ def render_scene(
     ``err_buffer`` is the antialiased squared residual against ``obs`` when
     ``antialiase_error``. ``impl="kernel"`` runs the CUDA kernels on a CUDA
     scene (a CPU scene always takes their plain versions);
-    ``impl="reference"`` takes the plain versions on any device.
+    ``impl="reference"`` takes the plain versions on any device. A scene
+    with a texture needs ``aa_tex_plan`` at ``sigma > 0``: its silhouette
+    bands are split and compacted as the plan says and blended by the
+    textured edge kernel.
 
-    Bins that overflow a capacity of ``tiling`` (or ``aa_edge_capacity``)
-    drop entries silently, as in the JAX package; ``check_capacity=True``
+    Bins that overflow a capacity of ``tiling`` (or ``aa_edge_capacity``, or
+    the plan's ``seg_capacity``) drop entries silently, as in the JAX package; ``check_capacity=True``
     raises ``RuntimeError`` naming the bin instead, at the cost of a host
     synchronisation per check.
     """
-    _refuse_off_slice(scene, tiling, aa_window, aa_tex_window, aa_tex_plan)
+    _refuse_off_slice(scene, sigma, tiling, aa_window, aa_tex_window, aa_tex_plan)
     checks: Optional[list] = [] if check_capacity else None
     ij_off, signed_area_v, draw, background = prepare(scene)
 
@@ -169,11 +190,19 @@ def render_scene(
 
     if sigma > 0:
         edges = _build_edge_data(scene, ij_off, signed_area_v, aa_edge_capacity, checks)
-        cfg = EdgeAAConfig(scene.height, scene.width, float(sigma), bool(scene.clockwise), bool(antialiase_error))
-        if antialiase_error:
-            err_buffer, edge_max = edge_pass_tiled_kernel(cfg, err_buffer, edges, z_buffer, obs, tiling, impl)
+        cfg = EdgeAAConfig(scene.height, scene.width, float(sigma), bool(scene.clockwise), bool(antialiase_error),
+                           scene.texture is not None)
+        buffer = err_buffer if antialiase_error else image
+        if cfg.has_texture:
+            buffer, edge_max = edge_pass_tiled_kernel_tex(
+                cfg, buffer, edges, scene.texture, z_buffer, obs, tiling, aa_tex_plan, impl, checks
+            )
         else:
-            image, edge_max = edge_pass_tiled_kernel(cfg, image, edges, z_buffer, None, tiling, impl)
+            buffer, edge_max = edge_pass_tiled_kernel(cfg, buffer, edges, z_buffer, obs, tiling, impl)
+        if antialiase_error:
+            err_buffer = buffer
+        else:
+            image = buffer
         if checks is not None:
             checks.append(("edge tile bin", edge_max, tiling.edge_capacity))
 
@@ -182,7 +211,7 @@ def render_scene(
         if count > capacity:
             raise RuntimeError(
                 f"{label} overflow: occupancy {count} exceeds static capacity {capacity}; entries were "
-                "dropped — raise the capacity in TilingConfig / aa_edge_capacity (see suggest_tiling)"
+                "dropped — raise the capacity in TilingConfig / aa_edge_capacity / the plan (see suggest_tiling)"
             )
     return image, z_buffer, err_buffer
 
@@ -199,12 +228,15 @@ def _build_edge_data(
     0..2 of each using vertex pairs (1,0), (2,1), (0,2). Only edges flagged
     in ``edgeflags`` of front-facing triangles are active; with
     ``aa_edge_capacity`` the active edges are compacted, in order, to that
-    many slots."""
+    many slots. ``uvs`` are zero for a scene without a texture;
+    ``use_texture`` marks the edges of textured and shaded triangles."""
     nt = scene.faces.shape[0]
     dev = ij_off.device
     sum_depth = sum3(scene.depths[scene.faces], dim=1)
     order = torch.sort(sum_depth, descending=True, stable=True).indices
     faces_o = scene.faces[order]  # (T, 3)
+    faces_uv_o = scene.faces_uv[order]
+    use_texture_o = (scene.textured & scene.shaded)[order]
     active = (scene.edgeflags[order] & (signed_area_v[order] > 0)[:, None]).reshape(-1)  # (3T,)
     idx = torch.arange(3 * nt, device=dev)
     if aa_edge_capacity is not None and aa_edge_capacity < 3 * nt:
@@ -215,10 +247,17 @@ def _build_edge_data(
     tri, slot = idx // 3, idx % 3
     i0 = faces_o[tri, (slot + 1) % 3]
     i1 = faces_o[tri, slot]
+    if scene.texture is not None and scene.uv.shape[0] > 0:
+        uvs = torch.stack([scene.uv[faces_uv_o[tri, (slot + 1) % 3]], scene.uv[faces_uv_o[tri, slot]]], dim=1)
+    else:
+        uvs = torch.zeros((idx.shape[0], 2, 2), dtype=ij_off.dtype, device=dev)
     return EdgeData(
         v0=ij_off[i0],
         v1=ij_off[i1],
         z=torch.stack([scene.depths[i0], scene.depths[i1]], dim=1),
         attrs=torch.stack([scene.colors[i0], scene.colors[i1]], dim=1),
+        uvs=uvs,
+        shades=torch.stack([scene.shade[i0], scene.shade[i1]], dim=1),
         active=active,
+        use_texture=use_texture_o[tri],
     )

@@ -1,9 +1,9 @@
 """Tiled / binned rasterization: binning, per-tile tables and the glue
-around the two kernels.
+around the kernels.
 
-PyTorch counterpart of the tiled untextured path of ``deodr_tpu/ops/tiled.py``
-(``rasterize_tiled_pallas`` and ``edge_pass_tiled_pallas`` with what they
-call). The framebuffer is split into fixed-size tiles; triangles are binned
+PyTorch counterpart of the tiled path of ``deodr_tpu/ops/tiled.py``
+(``rasterize_tiled_pallas``, ``edge_pass_tiled_pallas`` and
+``edge_pass_tiled_pallas_tex`` with what they call). The framebuffer is split into fixed-size tiles; triangles are binned
 by bounding box and silhouette-edge bands by an exact band-vs-tile test,
 each bin a padded per-tile slot list of static capacity in stable item
 order. The differentiable per-item rows (affine attribute maps, edge
@@ -23,21 +23,25 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from deodr_tpu_torch.ops.common import inv3x3, safe_barycentric_matrices
+from deodr_tpu_torch.ops.common import bilinear_sample, inv3x3, safe_barycentric_matrices
 from deodr_tpu_torch.ops.edge_aa import EdgeAAConfig, EdgeData
 from deodr_tpu_torch.ops.kernels import TileGrid
-from deodr_tpu_torch.ops.kernels.edge_kernel import edge_pass
+from deodr_tpu_torch.ops.kernels.edge_kernel import edge_pass, edge_row_width
+from deodr_tpu_torch.ops.kernels.edge_tex_kernel import edge_tex_pass
 from deodr_tpu_torch.ops.kernels.raster_kernel import SETUP_WIDTH, raster_eval
 from deodr_tpu_torch.ops.raster import TriangleRowSetup, triangle_row_setup
 
 
 class TilingConfig(NamedTuple):
     """Static tiling parameters: the fields of the JAX package's
-    ``TilingConfig`` that untextured rendering reads, with the same names
-    and defaults. Capacities bound per-tile bin sizes. This package bins
+    ``TilingConfig`` that this package reads, with the same names and
+    defaults. Capacities bound per-tile bin sizes. This package bins
     densely: the two-level (``super_*``) and pair-expansion (``pair_*``)
     binners belong to a later part of the port and raise
-    ``NotImplementedError``."""
+    ``NotImplementedError``. The JAX package's ``tex_tile_capacity`` and
+    ``tex_block_w`` compact the solid pass's texture fetch to 8-row blocks
+    because a TPU gather costs per row; here the fetch runs on the full
+    frame, so nothing would read them and they are not fields."""
 
     tile_h: int = 64
     tile_w: int = 64
@@ -90,6 +94,15 @@ def _compact_bins(mask: torch.Tensor, capacity: int):
     slots.scatter_(1, dest, torch.arange(n, device=mask.device).expand(n_tiles, n))
     slot_valid = torch.arange(cap, device=mask.device)[None, :] < counts[:, None]
     return slots[:, :cap], slot_valid, counts
+
+
+def _gather_rows(table: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """``table[slots]`` for an (N, W) table and (n_tiles, K) slot lists →
+    (n_tiles, K, W), written as ``index_select``: its backward is one
+    ``index_add_`` (atomics on the card), where the backward of plain
+    indexing sorts the indices and walks equal ones one after the other,
+    and the padding slots of every tile all repeat row 0."""
+    return table.index_select(0, slots.reshape(-1)).reshape(slots.shape + (table.shape[1],))
 
 
 def _bin_to_tiles(x_lo, x_hi, y_lo, y_hi, valid, grid: TileGrid, capacity: int):
@@ -300,22 +313,40 @@ def _pack_setup_rows(setup: TriangleRowSetup, dtype) -> torch.Tensor:
     return torch.cat([c.to(dtype) for c in cols], dim=1)
 
 
-def _affine_attribute_maps(scene, v_xy: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
-    """Differentiable per-triangle affine color maps (T, C, 3):
-    A(x, y) = colors·bary(x, y). Gradients reach vertex positions through
-    the barycentric matrix and colors through the corners."""
+def _affine_attribute_maps(scene, v_xy, faces, faces_uv, textured, shaded) -> torch.Tensor:
+    """Differentiable per-triangle affine attribute maps (T, D, 3),
+    A(x, y) = corner values · bary(x, y), with the attribute order
+    [colors (C) | uv (2) | shade (1) | textured flag] (the last three only
+    for a scene with a texture; the flag row is the constant 0 or 1).
+    Gradients reach vertex positions through the barycentric matrix and
+    colors, uv and shade through the corners."""
     xy1_to_bary, _ = safe_barycentric_matrices(v_xy)  # (T, 3, 3)
     corner = scene.colors[faces]  # (T, 3, C)
-    return (
+    if scene.texture is not None:
+        corner = torch.cat([corner, scene.uv[faces_uv], scene.shade[faces][..., None]], dim=-1)
+    affine = (
         corner[:, 0, :, None] * xy1_to_bary[:, 0, None, :]
         + corner[:, 1, :, None] * xy1_to_bary[:, 1, None, :]
         + corner[:, 2, :, None] * xy1_to_bary[:, 2, None, :]
     )
+    if scene.texture is not None:
+        flag_row = torch.zeros((affine.shape[0], 1, 3), dtype=affine.dtype, device=affine.device)
+        flag_row[:, 0, 2] = (textured & shaded).to(affine.dtype)
+        affine = torch.cat([affine, flag_row], dim=1)
+    return affine
 
 
 def _finish_shading(scene, vals, z_buffer, background):
-    """Background compositing of the untextured colors; vals (H, W, C)."""
-    pix = vals[..., : scene.colors.shape[1]]
+    """Texture fetch and background compositing; vals (H, W, D) in the
+    attribute order of :func:`_affine_attribute_maps`. The fetch runs on the
+    full frame (pixels that no textured triangle covers sample at uv = 0 and
+    are not selected)."""
+    c = scene.colors.shape[1]
+    pix = vals[..., :c]
+    if scene.texture is not None:
+        tex_px = bilinear_sample(scene.texture, vals[..., c : c + 2]) * vals[..., c + 2 : c + 3]
+        use_tex = vals[..., -1].detach() > 0.5
+        pix = torch.where(use_tex[..., None], tex_px, pix)
     pix = torch.where(torch.isfinite(pix), pix, 0.0)
     return torch.where(torch.isfinite(z_buffer)[..., None], pix, background)
 
@@ -326,7 +357,7 @@ def raster_tables(scene, ij_off, draw, tiling: TilingConfig, checks=None):
     height, width = scene.height, scene.width
     grid = _grid(height, width, tiling.tile_h, tiling.tile_w)
     dtype = ij_off.dtype
-    faces = scene.faces
+    faces, faces_uv, textured, shaded = scene.faces, scene.faces_uv, scene.textured, scene.shaded
     if tiling.drawn_capacity:
         # index-level compaction of the drawn triangles: every later cost
         # scales with their number
@@ -334,7 +365,7 @@ def raster_tables(scene, ij_off, draw, tiling: TilingConfig, checks=None):
         if checks is not None:
             checks.append(("drawn-triangle compaction", draw.sum(), dcap))
         perm, got = _compact_index_perm(draw, dcap)
-        faces = faces[perm]
+        faces, faces_uv, textured, shaded = faces[perm], faces_uv[perm], textured[perm], shaded[perm]
         draw = draw[perm] & got
     v_xy = ij_off[faces]  # (T, 3, 2)
     v_z = scene.depths[faces]
@@ -343,12 +374,12 @@ def raster_tables(scene, ij_off, draw, tiling: TilingConfig, checks=None):
         tiling, setup.x_lo, setup.x_hi, setup.y_lo[:, 0], setup.y_hi[:, 1], setup.valid,
         grid, tiling.triangle_capacity,
     )
-    setup_tile = _pack_setup_rows(setup, dtype)[slots]  # (n_tiles, cap, 22)
+    setup_tile = _gather_rows(_pack_setup_rows(setup, dtype), slots)  # (n_tiles, cap, 22)
     setup_tile[:, :, SETUP_WIDTH - 1] *= slot_valid.to(dtype)
-    affine = _affine_attribute_maps(scene, v_xy, faces)  # (T, D, 3)
+    affine = _affine_attribute_maps(scene, v_xy, faces, faces_uv, textured, shaded)  # (T, D, 3)
     # kernel layout [x-coeffs D | y-coeffs D | const D]
     affine_g = affine.transpose(1, 2).reshape(affine.shape[0], 3 * affine.shape[1])
-    affine_tile = affine_g[slots]  # (n_tiles, cap, 3D)
+    affine_tile = _gather_rows(affine_g, slots)  # (n_tiles, cap, 3D)
     return RasterTables(affine_tile, setup_tile, counts.to(torch.int32), grid)
 
 
@@ -369,9 +400,10 @@ def rasterize_tiled_kernel(scene, ij_off, draw, background, tiling: TilingConfig
 
 
 class EdgeTables(NamedTuple):
-    """Inputs of the edge-pass kernels (see edge_kernel's layouts)."""
+    """Inputs of the edge-pass kernels (see edge_kernel's and
+    edge_tex_kernel's layouts)."""
 
-    table_tile: torch.Tensor  # (n_tiles, cap, 25 + 3C), differentiable
+    table_tile: torch.Tensor  # (n_tiles, cap, 25 + 3C, or 35 + 3C with a texture), differentiable
     counts: torch.Tensor  # (n_tiles,) int32
     grid: TileGrid
 
@@ -436,9 +468,10 @@ def _edge_stencil_rows(cfg: EdgeAAConfig, edges: EdgeData, height: int):
 
 
 def edge_tables(cfg: EdgeAAConfig, edges: EdgeData, z_buffer, tiling: TilingConfig) -> EdgeTables:
-    """Build the edge rows (colors and depth folded into affine (x, y)
-    coefficients, differentiably) and bin the bands to tiles, culling bands
-    hidden behind the tile's z-buffer."""
+    """Build the edge rows (colors and depth, and with ``cfg.has_texture``
+    also uv and shade, folded into affine (x, y) coefficients,
+    differentiably) and bin the bands to tiles, culling bands hidden behind
+    the tile's z-buffer."""
     height, width = cfg.height, cfg.width
     grid = _grid(height, width, tiling.edge_tile_h or tiling.tile_h, tiling.tile_w)
     dtype = edges.v0.dtype
@@ -447,16 +480,24 @@ def edge_tables(cfg: EdgeAAConfig, edges: EdgeData, z_buffer, tiling: TilingConf
     a0, a1 = edges.attrs[:, 0, :], edges.attrs[:, 1, :]
     acoef = b0c[:, None, :] * a0[:, :, None] + b1c[:, None, :] * a1[:, :, None]  # (E, C, 3)
     i14, th14 = _transform_ineq_rows(b0c, b1c, tc, dtype)
-    rows = torch.cat(
-        [i14, th14, tc, y_beg[:, None], y_end[:, None], acoef.reshape(acoef.shape[0], 3 * c), zcoef,
-         active.to(dtype)[:, None]],
-        dim=1,
-    )
+    cols = [i14, th14, tc, y_beg[:, None], y_end[:, None], acoef.reshape(acoef.shape[0], 3 * c), zcoef,
+            active.to(dtype)[:, None]]
+    act_col = edge_row_width(c) - 1
+    if cfg.has_texture:
+        ucoef = b0c * edges.uvs[:, 0, 0:1] + b1c * edges.uvs[:, 1, 0:1]  # (E, 3)
+        vcoef = b0c * edges.uvs[:, 0, 1:2] + b1c * edges.uvs[:, 1, 1:2]
+        lcoef = b0c * edges.shades[:, 0:1] + b1c * edges.shades[:, 1:2]
+        cols += [ucoef, vcoef, lcoef, edges.use_texture.to(dtype)[:, None]]
+    rows = torch.cat(cols, dim=1)
     mask = _edge_band_tile_mask(edges.v0.detach(), edges.v1.detach(), cfg.sigma, active, grid, height, width)
     mask = mask & _occlusion_keep_mask(edges.z, z_buffer, grid)
     slots, slot_valid, counts = _compact_bins(mask, tiling.edge_capacity)
-    table_tile = rows[slots]  # (n_tiles, cap, W); the active flag is the last column
-    table_tile = torch.cat([table_tile[..., :-1], table_tile[..., -1:] * slot_valid[..., None]], dim=-1)
+    table_tile = _gather_rows(rows, slots)  # (n_tiles, cap, W)
+    table_tile = torch.cat(
+        [table_tile[..., :act_col], table_tile[..., act_col : act_col + 1] * slot_valid[..., None],
+         table_tile[..., act_col + 1 :]],
+        dim=-1,
+    )
     return EdgeTables(table_tile, counts.to(torch.int32), grid)
 
 
@@ -482,6 +523,110 @@ def edge_pass_tiled_kernel(cfg: EdgeAAConfig, buffer, edges: EdgeData, z_buffer,
     tables = edge_tables(cfg, edges, z_buffer, tiling)
     buf_pad, z_pad, obs_pad = pad_edge_buffers(cfg, buffer, z_buffer, obs, tables.grid)
     out_pad = edge_pass(tables.table_tile, buf_pad, z_pad, obs_pad, tables.counts, tables.grid, cfg.error_mode, impl)
+    h, w = cfg.height, cfg.width
+    out = out_pad[0, :h, :w] if cfg.error_mode else out_pad.permute(1, 2, 0)[:h, :w, :]
+    return out, tables.counts.max()
+
+
+# ----------------------------------------------------- textured edge pass
+
+
+class EdgeTexPlan(NamedTuple):
+    """Static plan of the textured edge pass, with the JAX package's field
+    names. Edges whose uv span exceeds ``uv_segment_length`` texels are
+    split into at most ``n_split`` collinear segments and the active
+    segments compacted to ``seg_capacity`` slots (0 = no compaction);
+    splitting a band lengthwise is exact, since the transparency ramp is a
+    line distance and every attribute is affine along the edge. On the TPU
+    the split bounds each segment's texture window; this package reads
+    texels directly, has no window fields, and keeps the split only so that
+    slot lists and blend order are the JAX package's."""
+
+    n_split: int = 1
+    seg_capacity: int = 0
+    uv_segment_length: float = 12.0
+
+
+def split_edges(edges: EdgeData, n_split: int, segment_length=None, uv_segment_length=None) -> EdgeData:
+    """Chop each edge into up to ``n_split`` collinear segments of roughly
+    ``segment_length`` pixels and/or ``uv_segment_length`` texels (the
+    Chebyshev span of the edge's uv segment); the extra segments of short
+    edges are inactive. Segments are edge-major, so the depth order across
+    edges is kept. Segment endpoints at t = 0 and t = 1 reuse the original
+    endpoint values bit for bit, so an unsplit edge is unchanged."""
+    e = edges.v0.shape[0]
+    dtype, dev = edges.v0.dtype, edges.v0.device
+    need = torch.ones(e, dtype=dtype, device=dev)
+    if segment_length is not None:
+        d = edges.v1 - edges.v0
+        need = torch.maximum(need, torch.sqrt((d * d).sum(dim=1)) / segment_length)
+    if uv_segment_length is not None:
+        uvlen = (edges.uvs[:, 1] - edges.uvs[:, 0]).abs().amax(dim=1)
+        need = torch.maximum(need, uvlen / uv_segment_length)
+    n_seg = torch.nan_to_num(need.detach(), nan=1.0, posinf=float(n_split)).ceil().clamp(1, n_split)  # (E,)
+    ks = torch.arange(n_split, dtype=dtype, device=dev)  # (S,)
+    t0 = (ks[None, :] / n_seg[:, None]).clamp_max(1.0)[..., None]  # (E, S, 1)
+    t1 = ((ks[None, :] + 1) / n_seg[:, None]).clamp_max(1.0)[..., None]
+    seg_active = (ks[None, :] < n_seg[:, None]) & edges.active[:, None]
+
+    c = edges.attrs.shape[-1]
+    # endpoint columns [v (2) | z (1) | attrs (C) | uv (2) | shade (1)]
+    cat0 = torch.cat([edges.v0, edges.z[:, 0:1], edges.attrs[:, 0], edges.uvs[:, 0], edges.shades[:, 0:1]], dim=1)
+    cat1 = torch.cat([edges.v1, edges.z[:, 1:2], edges.attrs[:, 1], edges.uvs[:, 1], edges.shades[:, 1:2]], dim=1)
+    a0, a1 = cat0[:, None, :], cat1[:, None, :]
+
+    def lerp(t):
+        return torch.where(t == 0.0, a0, torch.where(t == 1.0, a1, a0 + t * (a1 - a0))).reshape(e * n_split, -1)
+
+    s0, s1 = lerp(t0), lerp(t1)
+    return EdgeData(
+        v0=s0[:, 0:2],
+        v1=s1[:, 0:2],
+        z=torch.stack([s0[:, 2], s1[:, 2]], dim=1),
+        attrs=torch.stack([s0[:, 3 : 3 + c], s1[:, 3 : 3 + c]], dim=1),
+        uvs=torch.stack([s0[:, 3 + c : 5 + c], s1[:, 3 + c : 5 + c]], dim=1),
+        shades=torch.stack([s0[:, 5 + c], s1[:, 5 + c]], dim=1),
+        active=seg_active.reshape(-1),
+        use_texture=edges.use_texture.repeat_interleave(n_split),
+    )
+
+
+def compact_active_edges(edges: EdgeData, capacity: int) -> EdgeData:
+    """Compact the active edges or segments to the front, in order, into
+    min(capacity, E) slots; the slots past the active count repeat edge 0
+    and are inactive."""
+    cap = min(capacity, edges.active.shape[0])
+    perm, got = _compact_index_perm(edges.active, cap)
+    return EdgeData(
+        v0=edges.v0[perm],
+        v1=edges.v1[perm],
+        z=edges.z[perm],
+        attrs=edges.attrs[perm],
+        uvs=edges.uvs[perm],
+        shades=edges.shades[perm],
+        active=edges.active[perm] & got,
+        use_texture=edges.use_texture[perm],
+    )
+
+
+def edge_pass_tiled_kernel_tex(cfg: EdgeAAConfig, buffer, edges: EdgeData, texture, z_buffer, obs,
+                               tiling: TilingConfig, tex_plan: EdgeTexPlan, impl="kernel", checks=None):
+    """Tiled edge-overdraw pass of a textured or mixed scene through the
+    textured edge kernel → (buffer, max bin count). Counterpart of
+    ``edge_pass_tiled_pallas_tex``: the same split, compaction, rows and
+    bins, without the per-edge texture windows (see
+    :mod:`deodr_tpu_torch.ops.kernels.edge_tex_kernel`)."""
+    if tex_plan.n_split > 1:
+        edges = split_edges(edges, tex_plan.n_split, None, uv_segment_length=tex_plan.uv_segment_length)
+        if tex_plan.seg_capacity:
+            if checks is not None:
+                checks.append(("texture-window segment compaction", edges.active.sum(), tex_plan.seg_capacity))
+            edges = compact_active_edges(edges, tex_plan.seg_capacity)
+    tables = edge_tables(cfg, edges, z_buffer, tiling)
+    buf_pad, z_pad, obs_pad = pad_edge_buffers(cfg, buffer, z_buffer, obs, tables.grid)
+    out_pad = edge_tex_pass(
+        tables.table_tile, texture, buf_pad, z_pad, obs_pad, tables.counts, tables.grid, cfg.error_mode, impl
+    )
     h, w = cfg.height, cfg.width
     out = out_pad[0, :h, :w] if cfg.error_mode else out_pad.permute(1, 2, 0)[:h, :w, :]
     return out, tables.counts.max()

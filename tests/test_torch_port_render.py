@@ -2,7 +2,8 @@
 render_scene(..., tiling=..., impl="xla") on the CPU: images, z-buffers,
 error buffers and the gradients with respect to ij and colors, at σ = 0 and
 σ = 1, image and error mode, in float64 and float32; tie rules; refusals of
-what this part of the port does not cover; and no JAX in the port.
+what the port does not cover yet; and no JAX in the port. Textured scenes are
+held in tests/test_torch_port_textured.py.
 
 Float64 holds to 1e-9 except at band-boundary pixels: the port's edge
 kernel decides band membership with the thresholded planes of
@@ -251,9 +252,14 @@ def test_check_capacity_raises_on_undersized_tiling():
 
 @pytest.mark.parametrize(
     "change",
-    ["untiled", "texture", "perspective_correct", "strict_edge", "pair", "super", "aa_window", "aa_tex_plan"],
+    ["untiled", "texture", "perspective_correct", "strict_edge", "pair", "super", "aa_window", "aa_tex_plan",
+     "aa_tex_window"],
 )
 def test_off_slice_options_raise(change):
+    """What needs the untiled (sequential) passes or the large-mesh binners
+    raises: among them a textured scene at σ > 0 without a texture plan
+    ("texture"), and one with a plan but perspective-correct interpolation
+    ("aa_tex_plan"), which the JAX package sends to its sequential pass."""
     scene = scene_buffers_from_numpy(_fields(), device="cpu")
     kwargs = dict(tiling=port.TilingConfig(*TILING))
     if change == "untiled":
@@ -270,8 +276,11 @@ def test_off_slice_options_raise(change):
         kwargs["tiling"] = kwargs["tiling"]._replace(super_ty=1, super_tx=1, super_capacity=8)
     elif change == "aa_window":
         kwargs["aa_window"] = (32, 32)
+    elif change == "aa_tex_window":
+        kwargs["aa_tex_window"] = (16, 16)
     else:
-        kwargs["aa_tex_plan"] = object()
+        scene = dataclasses.replace(scene, texture=torch.zeros(4, 4, 3, dtype=torch.float64), perspective_correct=True)
+        kwargs["aa_tex_plan"] = port.EdgeTexPlan()
     with pytest.raises(NotImplementedError):
         port.render_scene(scene, 1.0, **kwargs)
 
@@ -286,6 +295,7 @@ def test_cuda_request_without_a_card_raises():
 def test_port_and_chip_smoke_import_no_jax():
     code = (
         "import sys; import deodr_tpu_torch, deodr_tpu_torch.ops.tiled, deodr_tpu_torch.bench_scene, chip_smoke; "
+        "import deodr_tpu_torch.duck_scene, deodr_tpu_torch.io.obj, deodr_tpu_torch.ops.kernels.edge_tex_kernel; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'deodr_tpu.')) or m == 'deodr_tpu']; "
         "assert not bad, bad"
     )

@@ -1,0 +1,92 @@
+"""Scenes and kernel inputs shared by the port's textured tests: numpy
+fields made from a seed and the kernel tables the port makes of them. Nothing here
+imports JAX, so the card-only tests can use it too."""
+
+import numpy as np
+import torch
+
+import deodr_tpu_torch as port
+from deodr_tpu_torch.ops.edge_aa import EdgeAAConfig
+from deodr_tpu_torch.ops.render import _build_edge_data, prepare, scene_buffers_from_numpy
+from deodr_tpu_torch.ops.tiled import (
+    compact_active_edges,
+    edge_tables,
+    pad_edge_buffers,
+    rasterize_tiled_kernel,
+    split_edges,
+)
+
+HEIGHT, WIDTH = 96, 128
+SIGMA = 1.5
+TILING = dict(tile_h=32, tile_w=128, triangle_capacity=48, edge_capacity=64)
+AA_EDGE_CAPACITY = 64
+_SPLIT = dict(n_split=8, seg_capacity=128, uv_segment_length=12.0)
+# the texture window of the JAX package's EdgeTexPlan, which the port's plan has no field for
+JAX_WINDOW = dict(win_h=16, win_w=16)
+# name → (arguments of mixed_scene_fields, fields of the EdgeTexPlan). "clamped" puts the split scene's
+# uv (2 to 42) on an 8×8 texture, so most band pixels sample beyond its right and bottom borders
+PLANS = {
+    "unsplit": (dict(seed=0, uv_scale=8.0), dict(n_split=1)),
+    "split": (dict(seed=3, uv_scale=40.0), _SPLIT),
+    "clamped": (dict(seed=3, uv_scale=40.0, tex_hw=(8, 8)), _SPLIT),
+}
+
+
+def mixed_scene_fields(n_tri=12, tex_hw=(64, 64), seed=0, uv_scale=8.0) -> dict:
+    """The mixed textured / plain triangle soup of
+    tests/test_edge_tex_pallas.py::make_scene, as numpy fields."""
+    rng = np.random.RandomState(seed)
+    centers = rng.rand(n_tri, 1, 2) * [WIDTH, HEIGHT]
+    tri = centers + (rng.rand(n_tri, 3, 2) - 0.5) * 60
+    u = tri[:, 1] - tri[:, 0]
+    w = tri[:, 2] - tri[:, 0]
+    raw = u[:, 0] * w[:, 1] - w[:, 0] * u[:, 1]
+    tri[raw > 0] = tri[raw > 0][:, [0, 2, 1]]
+    faces = np.arange(3 * n_tri, dtype=np.int32).reshape(n_tri, 3)
+    depths = np.repeat(rng.rand(n_tri), 3) + 0.5
+    colors = rng.rand(3 * n_tri, 3)
+    uv = rng.rand(3 * n_tri, 2) * uv_scale + 2.0
+    shade = rng.rand(3 * n_tri) * 0.8 + 0.2
+    texture = rng.rand(*tex_hw, 3)
+    textured = rng.rand(n_tri) < 0.6
+    return dict(
+        faces=faces, faces_uv=faces, ij=tri.reshape(-1, 2), depths=depths, uv=uv, shade=shade, colors=colors,
+        edgeflags=np.ones((n_tri, 3), bool), textured=textured, shaded=np.ones((n_tri,), bool), texture=texture,
+        background_image=None, background_color=np.array([0.3, 0.5, 0.7]), height=HEIGHT, width=WIDTH,
+        clockwise=False, backface_culling=True, strict_edge=True, perspective_correct=False,
+        integer_pixel_centers=True,
+    )
+
+
+def plan_scene(plan):
+    """(numpy scene fields, EdgeTexPlan fields) of ``PLANS[plan]``."""
+    scene_kw, kw = PLANS[plan]
+    return mixed_scene_fields(**scene_kw), kw
+
+
+def obs_image():
+    return np.random.RandomState(9).rand(HEIGHT, WIDTH, 3)
+
+
+def tex_tables(plan, error_mode, dtype=torch.float64, device="cpu"):
+    """The textured edge kernel's inputs as the port's render path builds
+    them for the mixed scene under ``PLANS[plan]`` → (EdgeTables, texture,
+    buffer, z_pad, obs_pad)."""
+    fields, kw = plan_scene(plan)
+    scene = scene_buffers_from_numpy(fields, device=device, dtype=dtype)
+    tiling = port.TilingConfig(**TILING)
+    tex_plan = port.EdgeTexPlan(**kw)
+    obs = torch.from_numpy(obs_image()).to(device, dtype)
+    with torch.no_grad():
+        ij_off, signed_area, draw, background = prepare(scene)
+        image, z_buffer, _ = rasterize_tiled_kernel(scene, ij_off, draw, background, tiling, impl="reference")
+        edges = _build_edge_data(scene, ij_off, signed_area, AA_EDGE_CAPACITY)
+        if tex_plan.n_split > 1:
+            edges = compact_active_edges(
+                split_edges(edges, tex_plan.n_split, None, tex_plan.uv_segment_length), tex_plan.seg_capacity
+            )
+        cfg = EdgeAAConfig(HEIGHT, WIDTH, SIGMA, False, error_mode, True)
+        et = edge_tables(cfg, edges, z_buffer, tiling)
+        buffer = ((image - obs) ** 2).sum(-1) if error_mode else image
+        buf, z_pad, obs_pad = pad_edge_buffers(cfg, buffer, z_buffer, obs, et.grid)
+    return et, scene.texture, buf, z_pad, obs_pad
