@@ -31,10 +31,31 @@ Phases, each of which fails the run (non-zero exit) on any miss:
    Then a few descent steps on the duck loss of ``bench.py``
    (obs = clip(render + 0.05, 0, 1); the loss must fall), the median
    fwd+bwd step time and one profiled step;
-5. one JSON line ``{"kernels": [...]}``, one record per kernel and main path
+5. ``Scene3D`` on the duck at full width, through the port's own planner
+   (``deodr_tpu_torch.scene``): with ``quad_fetch=False`` the plan must equal
+   the ``DUCK_*`` constants field by field, and ``render`` +
+   ``render_backward`` with the kernels are held against
+   ``impl="reference"`` with ``check_capacity=True`` (image, z and the
+   gradients to vertices, light, uv and texture); the raster and textured
+   edge kernels are held against their plain versions again, on the tables
+   of the buffers ``Scene3D`` builds (float32, projected on the card), which
+   the quad path shares (checked). With ``quad_fetch=True``
+   the plan adds ``quad_fallback_capacity=1536``; kernel B4 (forward and
+   backward) is held against its plain versions on the duck's quads
+   (32256), and the quad render against the per-pixel one (image within
+   1e-5, gradients within 1e-3 of their scale), with launch counts zeroed
+   before and read after each path; ``torch.nn.functional.grid_sample``,
+   which computes B4's function, is timed beside it as a yardstick; then the
+   median step (render + render_backward) with and without the quad fetch,
+   and one profiled step of each;
+6. one JSON line ``{"kernels": [...]}``, one record per kernel and main path
    that launches it (launches on that path, error, times, the least time the
-   card could take at that path's shapes);
-6. last line ``{"ok": true, "device": {...}}``.
+   card could take at that path's shapes): 18 records over the paths
+   ``bench``, ``duck``, ``duck_scene3d`` and ``duck_quad``. ``ms`` times calls
+   of the wrapper with CUDA events, host cost of the call included;
+   ``device_ms`` (and ``library_device_ms``) is the device time of one call
+   from ``torch.profiler``, every kernel's in one profiler session;
+7. last line ``{"ok": true, "device": {...}}``.
 
 The scenes come from ``deodr_tpu_torch.bench_scene`` (numpy, seed 0, as
 ``bench.py`` builds it) and ``deodr_tpu_torch.duck_scene`` (``data/duck.obj``
@@ -61,9 +82,13 @@ AA_EDGE_CAPACITY = 600
 # counted from the kernel source (multiplies, adds, compares); the blend of
 # the few pixels inside a band is left out, so the bound stays a lower bound
 OPS_PER_VISIT = {"raster_fwd": 33, "edge_fwd": 33, "edge_bwd": 33, "edge_tex_fwd": 33, "edge_tex_bwd": 33}
-# the main paths (scenes) that launch each kernel: the kernels line has one record per (kernel, path)
-KERNEL_PATHS = {"raster_fwd": ("bench", "duck"), "raster_bwd": ("bench", "duck"), "edge_fwd": ("bench",),
-                "edge_bwd": ("bench",), "edge_tex_fwd": ("duck",), "edge_tex_bwd": ("duck",)}
+# the main paths whose measurements each kernel's records carry: the kernels line has one record per (kernel,
+# path). "duck" is render_scene on the duck's constant plan, "duck_scene3d" and "duck_quad" Scene3D on the
+# duck through its own planner, without and with the quad fetch; B4 runs only on "duck_quad"
+DUCK_PATHS = ("duck", "duck_scene3d", "duck_quad")
+KERNEL_PATHS = {"raster_fwd": ("bench",) + DUCK_PATHS, "raster_bwd": ("bench",) + DUCK_PATHS, "edge_fwd": ("bench",),
+                "edge_bwd": ("bench",), "edge_tex_fwd": DUCK_PATHS, "edge_tex_bwd": DUCK_PATHS,
+                "quad_blend_fwd": ("duck_quad",), "quad_blend_bwd": ("duck_quad",)}
 KERNEL_SOURCES = {
     "raster_fwd": ("deodr_tpu_torch/csrc/raster_kernel.cu", "deodr_tpu/ops/pallas/raster_kernel.py:137"),
     "raster_bwd": ("deodr_tpu_torch/csrc/raster_kernel.cu", "deodr_tpu/ops/pallas/raster_kernel.py:193"),
@@ -71,6 +96,8 @@ KERNEL_SOURCES = {
     "edge_bwd": ("deodr_tpu_torch/csrc/edge_kernel.cu", "deodr_tpu/ops/pallas/edge_kernel.py:202"),
     "edge_tex_fwd": ("deodr_tpu_torch/csrc/edge_tex_kernel.cu", "deodr_tpu/ops/pallas/edge_tex_kernel.py:160"),
     "edge_tex_bwd": ("deodr_tpu_torch/csrc/edge_tex_kernel.cu", "deodr_tpu/ops/pallas/edge_tex_kernel.py:257"),
+    "quad_blend_fwd": ("deodr_tpu_torch/csrc/quad_blend_kernel.cu", "deodr_tpu/ops/pallas/quad_blend_kernel.py:72"),
+    "quad_blend_bwd": ("deodr_tpu_torch/csrc/quad_blend_kernel.cu", "deodr_tpu/ops/pallas/quad_blend_kernel.py:90"),
 }
 
 
@@ -113,6 +140,48 @@ def time_ms(fn, reps: int, device) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_times(fns, device, reps: int = 10):
+    """Device time of one call of each function of ``fns`` (key →
+    function), all measured in one ``torch.profiler`` session (a session's
+    start costs seconds): after a warm-up, the ``reps`` calls of each
+    function run in a window of their own, 2 ms of idle card before and
+    after, and the durations of the device operations that start within a
+    window are summed. Beside ``time_ms`` it tells a kernel's own time from
+    the host's cost of calling it → key → ms; None without a card or
+    device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    if device.type != "cuda" or not fns:
+        return dict.fromkeys(fns)
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # the profiler now and then records no device events at all
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i, fn in enumerate(fns.values()):
+                time.sleep(0.002)
+                with record_function(f"smoke window {i}"):
+                    for _ in range(reps):
+                        fn()
+                    torch.cuda.synchronize()
+            time.sleep(0.002)
+        events = prof.events()
+        windows = {e.name: e.time_range for e in events
+                   if e.device_type == DeviceType.CPU and e.name.startswith("smoke window ")}
+        ops = [e for e in events if e.device_type == DeviceType.CUDA and not e.name.startswith("smoke window ")]
+        if ops and len(windows) == len(fns):
+            break
+    else:
+        return dict.fromkeys(fns)
+    out = {}
+    for i, key in enumerate(fns):
+        w = windows[f"smoke window {i}"]
+        inside = [e.time_range.elapsed_us() for e in ops if w.start - 1000 <= e.time_range.start <= w.end + 1000]
+        out[key] = sum(inside) / 1e3 / reps if inside else None
+    return out
+
+
 def bound_ms(n_bytes: float, n_ops: float):
     t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_OPS_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -149,6 +218,7 @@ def check_raster_kernels(scene, tiling, device, say, gen):
         out["raster_fwd"] = dict(
             max_abs_err=max(e_z, e_v),
             ms=time_ms(lambda: rk.raster_fwd(rt.setup_tile, rt.affine_tile, rt.counts, grid), 50, device),
+            device_fn=lambda: rk.raster_fwd(rt.setup_tile, rt.affine_tile, rt.counts, grid),
             plain_ms=time_ms(lambda: rk.raster_fwd(rt.setup_tile, rt.affine_tile, rt.counts, grid, impl="reference"),
                              3, device),
             bound=bound_ms(rows * (22 + 3 * d) * esz + grid.n_tiles * 4 + p_total * (4 + esz * (1 + d)),
@@ -164,6 +234,7 @@ def check_raster_kernels(scene, tiling, device, say, gen):
         out["raster_bwd"] = dict(
             max_abs_err=max_err(gt_k, gt_ref),
             ms=time_ms(lambda: rk.raster_bwd(s_ref, g_vals, rt.counts, grid, cap_r), 50, device),
+            device_fn=lambda: rk.raster_bwd(s_ref, g_vals, rt.counts, grid, cap_r),
             plain_ms=time_ms(lambda: rk.raster_bwd(s_ref, g_vals, rt.counts, grid, cap_r, impl="reference"), 3, device),
             bound=bound_ms(p_total * (4 + esz * d) + rows * 3 * d * esz, p_total * 6 * d),
         )
@@ -218,12 +289,14 @@ def check_kernels(scene, tiling, obs, device, say):
                 p_e = et.grid.n_tiles * et.grid.tile_h * et.grid.tile_w
                 out["edge_fwd"].update(
                     ms=time_ms(lambda: ek.edge_fwd(*args), 50, device),
+                    device_fn=lambda args=args: ek.edge_fwd(*args),
                     plain_ms=time_ms(lambda: ek.edge_fwd(*args, impl="reference"), 3, device),
                     bound=bound_ms(e_rows * w_row * esz + p_e * esz * (2 * c + 1),
                                    e_visits * OPS_PER_VISIT["edge_fwd"]),
                 )
                 out["edge_bwd"].update(
                     ms=time_ms(lambda: ek.edge_bwd(*bargs), 20, device),
+                    device_fn=lambda bargs=bargs: ek.edge_bwd(*bargs),
                     plain_ms=time_ms(lambda: ek.edge_bwd(*bargs, impl="reference"), 3, device),
                     bound=bound_ms(e_rows * (w_row + 3 + 3 * c) * esz + p_e * esz * (3 * c + 1),
                                    e_visits * OPS_PER_VISIT["edge_bwd"]),
@@ -357,11 +430,12 @@ def profile_step(step, tag, device, say, steps=5):
 # ------------------------------------------------------ the duck (textured)
 
 
-def check_tex_kernels(scene, obs, device, say):
+def check_tex_kernels(scene, obs, device, say, plan=None):
     """The textured edge kernel against its plain version at the duck's
     shapes, image and error mode, and the raster kernels again with the
-    textured scene's 7 attribute planes; returns per-kernel measurements
-    (raster numbers under ``raster_*``, the duck's)."""
+    textured scene's 7 attribute planes; returns per-kernel measurements.
+    ``plan`` = (aa_edge_capacity, tiling, aa_tex_plan), by default the
+    constants of ``deodr_tpu_torch.duck_scene``."""
     from deodr_tpu_torch import duck_scene as ds
     from deodr_tpu_torch.ops.edge_aa import EdgeAAConfig
     from deodr_tpu_torch.ops.kernels import edge_tex_kernel as etk
@@ -371,14 +445,14 @@ def check_tex_kernels(scene, obs, device, say):
     )
 
     gen = torch.Generator(device="cpu").manual_seed(4)
-    tiling, plan = ds.DUCK_TILING, ds.DUCK_TEX_PLAN
+    edge_cap, tiling, plan = plan or (ds.DUCK_AA_EDGE_CAPACITY, ds.DUCK_TILING, ds.DUCK_TEX_PLAN)
     out = check_raster_kernels(scene, tiling, device, say, gen)
     texture = scene.texture
     with torch.no_grad():
         ij_off, signed_area, draw, background = prepare(scene)
         esz = scene.ij.element_size()
         image, z_buffer, _ = rasterize_tiled_kernel(scene, ij_off, draw, background, tiling, impl="reference")
-        edges = _build_edge_data(scene, ij_off, signed_area, ds.DUCK_AA_EDGE_CAPACITY)
+        edges = _build_edge_data(scene, ij_off, signed_area, edge_cap)
         edges = compact_active_edges(
             split_edges(edges, plan.n_split, None, uv_segment_length=plan.uv_segment_length), plan.seg_capacity
         )
@@ -427,12 +501,14 @@ def check_tex_kernels(scene, obs, device, say):
                     f"slots paint {tex_visits} (pixel, slot) pairs, {tap_bytes} bytes of taps")
                 out["edge_tex_fwd"].update(
                     ms=time_ms(lambda: etk.edge_tex_fwd(*args), 50, device),
+                    device_fn=lambda args=args: etk.edge_tex_fwd(*args),
                     plain_ms=time_ms(lambda: etk.edge_tex_fwd(*args, impl="reference"), 3, device),
                     bound=bound_ms(e_rows * w_row * esz + p_e * esz * (2 * c + 1) + tap_bytes,
                                    e_visits * OPS_PER_VISIT["edge_tex_fwd"]),
                 )
                 out["edge_tex_bwd"].update(
                     ms=time_ms(lambda: etk.edge_tex_bwd(*bargs), 20, device),
+                    device_fn=lambda bargs=bargs: etk.edge_tex_bwd(*bargs),
                     plain_ms=time_ms(lambda: etk.edge_tex_bwd(*bargs, impl="reference"), 3, device),
                     bound=bound_ms(e_rows * (w_row + 12 + 3 * c) * esz + p_e * esz * (3 * c + 1) + 2 * tap_bytes
                                    + texture.numel() * esz,
@@ -538,6 +614,229 @@ def run_duck(device, say):
     return measured, launches, ms
 
 
+# -------------------------------------------------- Scene3D on the duck
+
+
+SCENE3D_GRADS = ("vertices", "light_directional", "light_ambient", "uv", "texture")
+
+
+def duck_scene3d(device, quad_fetch, impl="kernel"):
+    """(Scene3D, camera) of the duck as ``bench.measure_duck`` builds it:
+    the mesh's float32 tensors on the card, light and background of
+    ``deodr_tpu_torch.duck_scene``."""
+    from deodr_tpu_torch import duck_scene as ds
+    from deodr_tpu_torch.camera import default_camera
+    from deodr_tpu_torch.geometry.mesh import ColoredTriMesh
+    from deodr_tpu_torch.scene import Scene3D
+
+    mesh = ColoredTriMesh.load(str(ds.DATA_PATH / "duck.obj"))
+    camera = default_camera(ds.DUCK_WIDTH, ds.DUCK_HEIGHT, 60, mesh.vertices.numpy(), np.diag([1.0, -1.0, -1.0]))
+    mesh.set_vertices(mesh.vertices.to(device, torch.float32))
+    mesh.uv = mesh.uv.to(device, torch.float32)
+    mesh.texture = mesh.texture.to(device, torch.float32)
+    scene = Scene3D(sigma=ds.DUCK_SIGMA, device=device, impl=impl, quad_fetch=quad_fetch)
+    scene.set_mesh(mesh)
+    scene.set_light(np.array(ds.LIGHT_DIRECTIONAL), ds.LIGHT_AMBIENT)
+    scene.set_background_color(np.array(ds.BACKGROUND_COLOR))
+    return scene, camera
+
+
+def scene3d_step(scene, camera, obs, check_capacity=False):
+    """render + render_backward of the duck loss Σ (image − obs)² →
+    (image, z-buffer, gradients by name)."""
+    image, z_buffer = scene.render(camera, return_z_buffer=True, check_capacity=check_capacity)
+    scene.render_backward(2 * (image - obs))
+    mesh = scene.mesh
+    grads = dict(vertices=mesh._vertices_b, light_directional=scene.light_directional_b,
+                 light_ambient=scene.light_ambient_b, uv=mesh.uv_b, texture=mesh.texture_b)
+    return image, z_buffer, grads
+
+
+def capture_quad_blend_inputs(scene, camera):
+    """The arguments the quad fetch hands kernel B4 on this view (one
+    render with the plain versions, not counted)."""
+    from deodr_tpu_torch.ops.kernels import quad_blend_kernel as qbk
+
+    seen = []
+    original = qbk.quad_blend
+
+    def recording(win, dv, du, ev, eu, impl="kernel"):
+        seen.append(tuple(t.detach().contiguous() for t in (win, dv, du, ev, eu)))
+        return original(win, dv, du, ev, eu, "reference")
+
+    qbk.quad_blend = recording
+    try:
+        with torch.no_grad():
+            scene.render(camera)
+    finally:
+        qbk.quad_blend = original
+    check(len(seen) == 1, "the quad fetch did not reach the blend exactly once")
+    return seen[0]
+
+
+def check_quad_kernels(inputs, device, say, gen):
+    """Kernel B4 forward and backward against their plain versions at the
+    duck's quads, and grid_sample as the yardstick; returns their
+    measurements."""
+    import torch.nn.functional as F
+
+    from deodr_tpu_torch.ops.kernels import quad_blend_kernel as qbk
+
+    win, dv, du, ev, eu = inputs
+    q, c = win.shape[0], win.shape[1] // 64
+    esz = win.element_size()
+    out_ref = qbk.quad_blend_fwd(*inputs, impl="reference")
+    out_k = qbk.quad_blend_fwd(*inputs)
+    e_f = max_err(out_k, out_ref)
+    ct = torch.rand(out_ref.shape, generator=gen, dtype=out_ref.dtype).to(device)
+    g_ref = qbk.quad_blend_bwd(*inputs, ct, impl="reference")
+    g_k = qbk.quad_blend_bwd(*inputs, ct)
+    e_w, e_v, e_u = (rel_err(a, b) for a, b in zip(g_k, g_ref))
+    say(f"quad_blend_fwd ({q} quads, C = {c}): out err {e_f:.3g} (limit 1e-6); quad_blend_bwd: d_win err {e_w:.3g}, "
+        f"d_ev err {e_v:.3g}, d_eu err {e_u:.3g} of scale (limit 1e-5)")
+    check(e_f <= 1e-6 and max(e_w, e_v, e_u) <= 1e-5, "quad_blend outside its tolerance")
+    check(float(g_k[0].abs().max()) > 0 and float(g_k[1].abs().max()) > 0, "quad_blend_bwd: all-zero gradients")
+
+    # the yardstick: the windows as a (Q, C, 8, 8) batch sampled at (du + eu, dv + ev), corners aligned
+    windows = win.reshape(q, 8, 8, c).permute(0, 3, 1, 2).contiguous()
+    grid = torch.stack([(du + eu) * (2.0 / 7.0) - 1.0, (dv + ev) * (2.0 / 7.0) - 1.0], dim=-1)[:, None]  # (Q, 1, 4, 2)
+
+    def library_fwd():
+        return F.grid_sample(windows, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+
+    lib = library_fwd()[:, :, 0].permute(0, 2, 1)  # (Q, 4, C)
+    e_lib = max_err(lib, out_ref)
+    say(f"grid_sample against quad_blend's plain version: err {e_lib:.3g} (limit 1e-5)")
+    check(e_lib <= 1e-5, "grid_sample does not compute quad_blend's function")
+    w_leaf, g_leaf = windows.clone().requires_grad_(True), grid.clone().requires_grad_(True)
+    ct_lib = ct.permute(0, 2, 1)[:, :, None].contiguous()
+
+    def library_fwd_bwd():
+        out = F.grid_sample(w_leaf, g_leaf, mode="bilinear", padding_mode="zeros", align_corners=True)
+        return torch.autograd.grad(out, (w_leaf, g_leaf), ct_lib)
+
+    # bytes the function needs: the distinct window texels the taps read, the
+    # coefficients, and the output (backward: the cotangent, and the dense
+    # window cotangent and the weight cotangents it writes)
+    pos = ((dv.long() * 8 + du.long())[..., None] + torch.tensor([0, 1, 8, 9], device=device)).reshape(q, 16)
+    touched = torch.zeros((q, 64), dtype=torch.bool, device=device).scatter_(1, pos, True)
+    tap_bytes = int(touched.sum()) * c * esz
+    coef_bytes = q * 4 * (4 + 4 + 2 * esz)
+    px_bytes = q * 4 * c * esz
+    say(f"quad_blend: {int(touched.sum())} distinct window texels read ({tap_bytes} bytes), coefficients "
+        f"{coef_bytes} bytes, samples {px_bytes} bytes, dense window cotangent {win.numel() * esz} bytes")
+    lib_fwd_ms = time_ms(library_fwd, 50, device)
+    lib_bwd_ms = time_ms(library_fwd_bwd, 20, device)
+    say(f"grid_sample: forward {lib_fwd_ms:.4f} ms, forward + backward {lib_bwd_ms:.4f} ms")
+    return {
+        "quad_blend_fwd": dict(
+            max_abs_err=e_f,
+            ms=time_ms(lambda: qbk.quad_blend_fwd(*inputs), 50, device),
+            device_fn=lambda: qbk.quad_blend_fwd(*inputs),
+            plain_ms=time_ms(lambda: qbk.quad_blend_fwd(*inputs, impl="reference"), 10, device),
+            bound=bound_ms(tap_bytes + coef_bytes + px_bytes, q * 4 * c * 12),
+            library_ms=lib_fwd_ms,
+            library_device_fn=library_fwd,
+        ),
+        "quad_blend_bwd": dict(
+            max_abs_err=max(max_err(a, b) for a, b in zip(g_k, g_ref)),
+            ms=time_ms(lambda: qbk.quad_blend_bwd(*inputs, ct), 50, device),
+            device_fn=lambda: qbk.quad_blend_bwd(*inputs, ct),
+            plain_ms=time_ms(lambda: qbk.quad_blend_bwd(*inputs, ct, impl="reference"), 10, device),
+            bound=bound_ms(tap_bytes + coef_bytes + px_bytes + win.numel() * esz + q * 4 * 2 * esz,
+                           q * 4 * c * 24),
+            # the library's backward needs its forward: forward + backward less the forward
+            library_ms=max(lib_bwd_ms - lib_fwd_ms, 0.0),
+            library_device_fn=library_fwd_bwd,
+            library_device_less_fn=library_fwd,
+        ),
+    }
+
+
+def run_scene3d(device, say):
+    """Phase 5; returns (measurements per path and kernel, launches per
+    path, median step ms with and without the quad fetch)."""
+    from deodr_tpu_torch import duck_scene as ds
+    from deodr_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    scene, camera = duck_scene3d(device, quad_fetch=False)
+    cap, tiling, aa_window, aa_tex_window, tex_plan = scene._eager_plan(camera)
+    say(f"Scene3D duck plan (quad_fetch=False) in {time.perf_counter() - t0:.2f} s: aa_edge_capacity={cap}, {tiling}, "
+        f"{tex_plan}, aa_window={aa_window}, aa_tex_window={aa_tex_window}")
+    check(cap == ds.DUCK_AA_EDGE_CAPACITY, "Scene3D plan: aa_edge_capacity differs from the duck's constant")
+    for name in tiling._fields:
+        check(getattr(tiling, name) == getattr(ds.DUCK_TILING, name), f"Scene3D plan: {name} differs from DUCK_TILING")
+    check(tex_plan == ds.DUCK_TEX_PLAN, "Scene3D plan: the textured edge plan differs from DUCK_TEX_PLAN")
+    with torch.no_grad():
+        obs = (scene.render(camera) + 0.05).clamp(0.0, 1.0)
+        # the buffers this view hands render_scene: float32, projected on the card
+        buffers, _ = scene._build_buffers(camera, *scene._diff_inputs(False), True)
+    say("Scene3D duck: the raster and textured edge kernels on the tables of its own buffers")
+    measured = {"duck_scene3d": check_tex_kernels(buffers, obs, device, say, plan=(cap, tiling, tex_plan))}
+    reference, _ = duck_scene3d(device, quad_fetch=False, impl="reference")
+    launches = {}
+
+    kernels.reset_launches()
+    img_k, z_k, g_k = scene3d_step(scene, camera, obs, check_capacity=True)
+    launches["duck_scene3d"] = dict(kernels.LAUNCHES)
+    img_r, z_r, g_r = scene3d_step(reference, camera, obs, check_capacity=True)
+    fin = torch.isfinite(z_r)
+    check(torch.equal(fin, torch.isfinite(z_k)), "Scene3D: coverage differs from the plain versions")
+    e_img, e_z = max_err(img_k, img_r), max_err(z_k[fin], z_r[fin])
+    errs = {k: rel_err(g_k[k], g_r[k]) for k in SCENE3D_GRADS}
+    say(f"Scene3D duck (per-pixel fetch): image err {e_img:.3g} (limit 1e-4), z err {e_z:.3g} (limit 1e-5), covered "
+        f"pixels {int(fin.sum())}; gradient err of scale (limit 1e-3): " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    check(tuple(img_k.shape) == (ds.DUCK_HEIGHT, ds.DUCK_WIDTH, 3) and bool(torch.isfinite(img_k).all()),
+          "Scene3D: the image is not finite or has the wrong shape")
+    check(all(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0 for g in g_k.values()),
+          "Scene3D: a gradient is non-finite or all zero")
+    check(e_img <= 1e-4 and e_z <= 1e-5 and all(v <= 1e-3 for v in errs.values()),
+          "Scene3D: kernels disagree with the plain versions")
+    say(f"launches on the Scene3D per-pixel path: {launches['duck_scene3d']}")
+    for name in ("raster_fwd", "raster_bwd", "edge_tex_fwd", "edge_tex_bwd"):
+        check(device.type != "cuda" or launches["duck_scene3d"][name] > 0,
+              f"{name} was never launched on the Scene3D per-pixel path")
+
+    quad, _ = duck_scene3d(device, quad_fetch=True)
+    q_plan = quad._eager_plan(camera)
+    say(f"Scene3D duck plan (quad_fetch=True): {q_plan[1]}")
+    check(q_plan[1] == ds.DUCK_TILING._replace(quad_fallback_capacity=1536) and q_plan[4] == ds.DUCK_TEX_PLAN,
+          "Scene3D plan with quad_fetch=True: not the duck's plan with quad_fallback_capacity=1536")
+    # the quad fetch changes only the solid pass's texture fetch: the raster and textured edge kernels
+    # get the buffers, and so the tables, of the per-pixel path, and their records are that path's
+    with torch.no_grad():
+        q_buffers, _ = quad._build_buffers(camera, *quad._diff_inputs(False), True)
+    check(all(torch.equal(getattr(q_buffers, f.name), getattr(buffers, f.name))
+              for f in dataclasses.fields(buffers) if isinstance(getattr(buffers, f.name), torch.Tensor)),
+          "Scene3D: the quad path's buffers differ from the per-pixel path's")
+    inputs = capture_quad_blend_inputs(quad, camera)
+    quad_measured = check_quad_kernels(inputs, device, say, torch.Generator(device="cpu").manual_seed(5))
+    measured["duck_quad"] = dict(measured["duck_scene3d"], **quad_measured)
+
+    kernels.reset_launches()
+    img_q, z_q, g_q = scene3d_step(quad, camera, obs, check_capacity=True)
+    launches["duck_quad"] = dict(kernels.LAUNCHES)
+    say(f"launches on the Scene3D quad path: {launches['duck_quad']}")
+    for name in ("raster_fwd", "raster_bwd", "edge_tex_fwd", "edge_tex_bwd", "quad_blend_fwd", "quad_blend_bwd"):
+        check(device.type != "cuda" or launches["duck_quad"][name] > 0,
+              f"{name} was never launched on the Scene3D quad path")
+    e_img = max_err(img_q, img_k)
+    errs = {k: rel_err(g_q[k], g_k[k]) for k in SCENE3D_GRADS}
+    say(f"Scene3D duck, quad fetch against per-pixel fetch: image err {e_img:.3g} (limit 1e-5); gradient err of scale "
+        "(limit 1e-3): " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    check(torch.equal(torch.isfinite(z_q), fin) and e_img <= 1e-5 and all(v <= 1e-3 for v in errs.values()),
+          "Scene3D: the quad fetch disagrees with the per-pixel fetch")
+
+    ms = {}
+    for tag, s in (("per-pixel", scene), ("quad", quad)):
+        ms[tag] = median_step_ms(lambda s=s: scene3d_step(s, camera, obs), device)
+        say(f"Scene3D duck step ({tag} fetch, render + render_backward): median {ms[tag]:.4f} ms")
+    profile_step(lambda: scene3d_step(quad, camera, obs), "Scene3D duck quad", device, say)
+    profile_step(lambda: scene3d_step(scene, camera, obs), "Scene3D duck per-pixel", device, say)
+    return measured, launches, ms
+
+
 def run(device="cuda", height=512, width=512, n_tri=200, smi_line=None):
     """All phases; raises on any miss. Returns the kernels record and the
     step times. A smaller bench scene only serves a rehearsal on the CPU;
@@ -548,13 +847,16 @@ def run(device="cuda", height=512, width=512, n_tri=200, smi_line=None):
 
     device = torch.device(device)
 
+    t_start = time.perf_counter()
+
     def say(msg):
-        print(msg, flush=True)
+        print(f"[{time.perf_counter() - t_start:7.2f} s] {msg}", flush=True)
 
     # 1. device
     if device.type == "cuda":
         say(f"device: {torch.cuda.get_device_name(0)}")
-    say(smi_line if smi_line is not None else "nvidia-smi: not run (rehearsal on the CPU)")
+    # as nvidia-smi prints it, on a line of its own
+    print(smi_line if smi_line is not None else "nvidia-smi: not run (rehearsal on the CPU)", flush=True)
 
     # 2. build
     if device.type == "cuda":
@@ -591,8 +893,28 @@ def run(device="cuda", height=512, width=512, n_tri=200, smi_line=None):
     # 4. the textured path on the duck
     measured["duck"], launches["duck"], ms["duck"] = run_duck(device, say)
 
-    # 5. kernels line: one record per kernel and main path that launches it (the raster kernels
-    # run on both, with 3 attribute planes on the bench scene and 7 on the duck)
+    # 5. Scene3D on the duck, with and without the quad fetch (kernel B4)
+    scene3d_measured, scene3d_launches, ms["scene3d"] = run_scene3d(device, say)
+    measured.update(scene3d_measured)
+    launches.update(scene3d_launches)
+
+    # 6. kernels line: one record per kernel and main path that launches it (the raster kernels
+    # run on all four, with 3 attribute planes on the bench scene and 7 on the duck), with the device
+    # times of every kernel and yardstick measured in one profiler session
+    fns = {(id(m), f): m[f] for per_kernel in measured.values() for m in per_kernel.values()
+           for f in ("device_fn", "library_device_fn", "library_device_less_fn") if f in m}
+    t0 = time.perf_counter()
+    times = device_times(fns, device)
+    say(f"device times of {len(fns)} functions in one profiler session: {time.perf_counter() - t0:.1f} s")
+
+    def device_time(m, f):
+        return times.get((id(m), f))
+
+    def library_device_ms(m):
+        t = device_time(m, "library_device_fn")
+        less = device_time(m, "library_device_less_fn") if "library_device_less_fn" in m else 0.0
+        return None if t is None or less is None else max(t - less, 0.0)
+
     record = []
     for name in kernels.KERNEL_NAMES:
         source, replaces = KERNEL_SOURCES[name]
@@ -601,7 +923,8 @@ def run(device="cuda", height=512, width=512, n_tri=200, smi_line=None):
             record.append(dict(
                 name=name, path=path_name, route="cuda", source=source, replaces=replaces,
                 launches=launches[path_name][name], max_abs_err=m["max_abs_err"], ms=m["ms"], plain_ms=m["plain_ms"],
-                bound_ms=m["bound"][0], bound_by=m["bound"][1], library_ms=None,
+                bound_ms=m["bound"][0], bound_by=m["bound"][1], library_ms=m.get("library_ms"),
+                device_ms=device_time(m, "device_fn"), library_device_ms=library_device_ms(m),
             ))
     print(json.dumps({"kernels": record}), flush=True)
     return record, ms

@@ -25,6 +25,7 @@ class TriMeshAdjacencies:
     - ``faces_edges``  (F, 3) int32 — edge id of (v0,v1), (v1,v2), (v2,v0).
     - ``degree_v_e``   (V,) — number of distinct neighbor vertices.
     - ``degree_v_f``   (V,) — number of incident faces.
+    - ``vertex_faces`` (V, K) int32 — incident faces, ``nb_faces`` padded.
     """
 
     def __init__(self, faces, clockwise: bool = False, nb_vertices: int | None = None):
@@ -82,6 +83,18 @@ class TriMeshAdjacencies:
         np.add.at(deg_e, edges.ravel(), 1)
         self.degree_v_e = deg_e
 
+        # incident faces of each vertex in increasing face order, padded
+        # with nb_faces (a zero row): a vertex normal is then a gather and a
+        # sum in a fixed order, the same on every run (atomics would add in
+        # another order each run, and float32 attribute maps of thin
+        # triangles magnify a last-bit change of the shade)
+        corners = np.argsort(faces.ravel(), kind="stable")
+        corner_vertex = faces.ravel()[corners]
+        per_vertex = np.bincount(corner_vertex, minlength=nv)
+        rank = np.arange(len(corners)) - np.repeat(np.cumsum(per_vertex) - per_vertex, per_vertex)
+        self.vertex_faces = np.full((nv, max(int(per_vertex.max(initial=0)), 1)), nf, dtype=np.int32)
+        self.vertex_faces[corner_vertex, rank] = corners // 3
+
         self._on_device: dict = {}  # (name, device) → int64 index tensor
 
     def _index(self, name: str, device) -> torch.Tensor:
@@ -103,11 +116,12 @@ class TriMeshAdjacencies:
         return _normalize(n)
 
     def compute_vertex_normals(self, face_normals: torch.Tensor) -> torch.Tensor:
-        """Non-area-weighted mean of the incident face normals, normalized."""
-        faces = self._index("faces", face_normals.device)
-        summed = torch.zeros((self.nb_vertices, 3), dtype=face_normals.dtype, device=face_normals.device)
-        summed = summed.index_add(0, faces.reshape(-1), face_normals.repeat_interleave(3, dim=0))
-        return _normalize(summed)
+        """Non-area-weighted mean of the incident face normals, normalized;
+        deterministic (see ``vertex_faces``)."""
+        vertex_faces = self._index("vertex_faces", face_normals.device)
+        padded = torch.cat([face_normals, face_normals.new_zeros((1, 3))])
+        incident = padded.index_select(0, vertex_faces.reshape(-1)).reshape(vertex_faces.shape + (3,))
+        return _normalize(incident.sum(dim=1))
 
     def face_visible(self, vertices_2d: torch.Tensor) -> torch.Tensor:
         """Screen-space front-facing test per face."""

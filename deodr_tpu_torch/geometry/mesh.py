@@ -114,7 +114,7 @@ class ColoredTriMesh(TriMesh):
         compute_adjacencies: bool = True,
     ):
         super().__init__(faces, vertices, clockwise=clockwise, compute_adjacencies=compute_adjacencies)
-        self.faces_uv = None if faces_uv is None else np.asarray(faces_uv).astype(np.int32)
+        self.faces_uv = faces_uv
         self.uv = _as_tensor(uv)
         self.texture = _as_tensor(texture)
         self.vertices_colors = _as_tensor(colors)
@@ -127,6 +127,26 @@ class ColoredTriMesh(TriMesh):
             else:
                 nb_colors = int(self.texture.shape[2])
         self.nb_colors = nb_colors
+
+    @property
+    def faces_uv(self) -> Optional[np.ndarray]:
+        return self._faces_uv
+
+    @faces_uv.setter
+    def faces_uv(self, faces_uv) -> None:
+        self._faces_uv = None if faces_uv is None else np.asarray(faces_uv).astype(np.int32)
+        self._faces_uv_on_device: dict = {}  # device → int64 index tensor
+
+    def _index(self, name: str, device) -> torch.Tensor:
+        """``faces`` or ``faces_uv`` (the faces where the mesh has no uv
+        faces of its own) as an int64 tensor on ``device``, copied there
+        once and kept with the mesh."""
+        if name == "faces_uv" and self._faces_uv is not None:
+            key = torch.device(device)
+            if key not in self._faces_uv_on_device:
+                self._faces_uv_on_device[key] = torch.as_tensor(self._faces_uv.astype(np.int64), device=device)
+            return self._faces_uv_on_device[key]
+        return self.adjacencies._index("faces", device)
 
     def set_vertices_colors(self, colors) -> None:
         self.vertices_colors = _as_tensor(colors)

@@ -2,7 +2,8 @@
 float32-safe barycentric matrices.
 
 PyTorch counterpart of the subset of ``deodr_tpu/ops/common.py`` that the
-tiled render path uses, with the bilinear texture fetch. Gathers are plain indexing here: autograd
+tiled render path uses, with the bilinear texture fetch, per pixel and per
+2×2 screen quad (``quad_window_table``, ``bilinear_sample_quads``). Gathers are plain indexing here: autograd
 turns them into ``index_add`` in the backward, which is what the JAX
 package's ``gather_rows_mm`` one-hot contraction emulates on the TPU.
 Small contractions (3 terms) are written out as sums of products, so no
@@ -118,6 +119,22 @@ def sum3(a: torch.Tensor, dim: int) -> torch.Tensor:
     return x0 + x1 + x2
 
 
+def bilinear_coords(u: torch.Tensor, v: torch.Tensor, th: int, tw: int):
+    """Weights and first-tap texel of a bilinear fetch at column coordinate
+    ``u`` and row coordinate ``v`` in a (th, tw) texture → (eu, ev, iu, iv):
+    ``fu = floor(u)``, ``eu`` is 0 where ``fu < 0``, 1 where ``fu > tw − 2``,
+    else ``u − fu`` (so a clamped coordinate gets no gradient), and
+    ``iu = clip(fu, 0, tw − 2)`` as int64; likewise for ``v``. A non-finite
+    coordinate gives the first or the last texel, never one outside."""
+    fu, fv = torch.floor(u), torch.floor(v)
+    eu = torch.where(fu < 0, 0.0, torch.where(fu > tw - 2, 1.0, u - fu))
+    ev = torch.where(fv < 0, 0.0, torch.where(fv > th - 2, 1.0, v - fv))
+    # nan_to_num before the cast: a NaN cast to an integer is undefined
+    iu = torch.nan_to_num(fu.detach(), nan=0.0).clamp(0, tw - 2).to(torch.int64)
+    iv = torch.nan_to_num(fv.detach(), nan=0.0).clamp(0, th - 2).to(torch.int64)
+    return eu, ev, iu, iv
+
+
 def bilinear_taps(texture: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
     """The 2×2 footprint of a bilinear fetch at column coordinate ``u`` and
     row coordinate ``v`` (same shape) in ``texture`` (th, tw, C) →
@@ -125,21 +142,12 @@ def bilinear_taps(texture: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
     and row, the flat index ``row·tw + column`` of the first tap, and the
     four taps (..., C), tXY at column X, row Y of the footprint.
 
-    Integer texel centers with border clamp: ``fu = floor(u)``, ``eu`` is 0
-    where ``fu < 0``, 1 where ``fu > tw − 2``, else ``u − fu`` (so a
-    clamped coordinate gets no gradient), and the first tap sits at
-    ``clip(fu, 0, tw − 2)``. A non-finite coordinate reads the first or the
-    last footprint, never outside the texture. The taps are fetched
-    directly; autograd accumulates the texture gradient over overlapping
-    footprints (``index_add_``).
+    Integer texel centers with border clamp (see :func:`bilinear_coords`).
+    The taps are fetched directly; autograd accumulates the texture
+    gradient over overlapping footprints (``index_add_``).
     """
     th, tw, c = texture.shape
-    fu, fv = torch.floor(u), torch.floor(v)
-    eu = torch.where(fu < 0, 0.0, torch.where(fu > tw - 2, 1.0, u - fu))
-    ev = torch.where(fv < 0, 0.0, torch.where(fv > th - 2, 1.0, v - fv))
-    # nan_to_num before the cast: a NaN cast to an integer is undefined
-    iu = torch.nan_to_num(fu.detach(), nan=0.0).clamp(0, tw - 2).to(torch.int64)
-    iv = torch.nan_to_num(fv.detach(), nan=0.0).clamp(0, th - 2).to(torch.int64)
+    eu, ev, iu, iv = bilinear_coords(u, v, th, tw)
     idx = iv * tw + iu
     flat = texture.reshape(th * tw, c)
     flat_idx = idx.reshape(-1)
@@ -163,3 +171,82 @@ def bilinear_sample(texture: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     the border rules."""
     eu, ev, _, taps = bilinear_taps(texture, p[..., 0], p[..., 1])
     return bilinear_blend(eu[..., None], ev[..., None], taps)
+
+
+def quad_window_table(texture: torch.Tensor) -> torch.Tensor:
+    """Stride-2 8×8 texel window table of a (th, tw, C) texture →
+    (th//2 · tw//2, 64·C): row (bv, bu) holds ``texture[2bv : 2bv+8,
+    2bu : 2bu+8]`` flattened (row, column, channel), zero past the far
+    borders (those texels are never read: taps are clamped to the texture).
+    A window at an even origin covers every set of taps that spans at most
+    6 texels, as the taps of a 2×2 screen quad usually do. Built with
+    ``unfold``; its backward adds each window entry's cotangent back into
+    its texel."""
+    th, tw, c = texture.shape
+    texp = torch.nn.functional.pad(texture, (0, 0, 0, 6, 0, 6))
+    win = texp.unfold(0, 8, 2).unfold(1, 8, 2)  # (th//2, tw//2, C, 8, 8)
+    return win.permute(0, 1, 3, 4, 2).reshape((th // 2) * (tw // 2), 64 * c)
+
+
+def bilinear_sample_quads(texture: torch.Tensor, uv_q: torch.Tensor, mask_q: torch.Tensor, fallback_capacity: int,
+                          checks=None, impl: str = "kernel") -> torch.Tensor:
+    """Bilinear texture fetch with one window-table row per 2×2 pixel quad.
+
+    ``uv_q`` (Q, 4, 2): pixel (u, v) grouped by screen quad; ``mask_q``
+    (Q, 4) bool: the pixels that use their sample (the others get an
+    arbitrary in-window value; callers mask them out). Returns (Q, 4, C),
+    equal per masked pixel to :func:`bilinear_sample` (same taps, same
+    blend order).
+
+    Each quad's window origin is the even texel at or below the smallest tap
+    of its masked pixels. Quads whose taps reach past the window (span over
+    6 texels: uv seams, minification) are re-fetched pixel by pixel through
+    a compacted list of static ``fallback_capacity`` slots; quads beyond it
+    keep the (wrong) clamped-window sample, a capacity event that
+    ``checks`` reports ("quad-fetch fallback compaction"). The main pass
+    blends through :func:`deodr_tpu_torch.ops.kernels.quad_blend_kernel.
+    quad_blend` (the kernel on a CUDA tensor with ``impl="kernel"``).
+    """
+    from deodr_tpu_torch.ops.kernels.quad_blend_kernel import quad_blend, quad_blend_fwd_reference
+    from deodr_tpu_torch.ops.tiled import _compact_bins
+
+    th, tw, c = texture.shape
+    n_bu = tw // 2
+    q = uv_q.shape[0]
+    table = quad_window_table(texture)
+    eu, ev, iu, iv = bilinear_coords(uv_q[..., 0], uv_q[..., 1], th, tw)  # (Q, 4)
+    org_u = 2 * (torch.where(mask_q, iu, tw - 2).amin(dim=1) // 2)  # (Q,)
+    org_v = 2 * (torch.where(mask_q, iv, th - 2).amin(dim=1) // 2)
+    du = iu - org_u[:, None]  # ≥ 0 for masked pixels
+    dv = iv - org_v[:, None]
+    bad = (mask_q & ((du > 6) | (dv > 6))).any(dim=1)  # (Q,)
+    rows = (org_v // 2) * n_bu + org_u // 2
+    win = table.index_select(0, rows)  # (Q, 64C): the one row gather per quad
+    offsets = (dv.clamp(0, 6).to(torch.int32), du.clamp(0, 6).to(torch.int32))
+    samples = quad_blend(win, *offsets, ev, eu, impl)
+    if fallback_capacity <= 0:
+        return samples
+    if checks is not None:
+        checks.append(("quad-fetch fallback compaction", bad.sum(), fallback_capacity))
+
+    # the oversize quads, re-fetched per pixel: one pixel's taps span 2
+    # texels, so a window at the pixel's own even origin always holds them
+    cap_b = min(fallback_capacity, q)
+    ids, valid, _ = _compact_bins(bad[None, :], cap_b)
+    ids, valid = ids[0], valid[0]
+    # the padding slots all repeat quad 0: the differentiable gathers are
+    # index_select (one index_add_ backward), not plain indexing
+    iu_f, iv_f = iu[ids], iv[ids]  # (B, 4)
+    org_u_f, org_v_f = 2 * (iu_f // 2), 2 * (iv_f // 2)
+    win_f = table.index_select(0, ((org_v_f // 2) * n_bu + org_u_f // 2).reshape(-1))  # (4B, 64C)
+    samples_f = quad_blend_fwd_reference(
+        win_f, (iv_f - org_v_f).reshape(-1, 1), (iu_f - org_u_f).reshape(-1, 1),
+        ev.index_select(0, ids).reshape(-1, 1), eu.index_select(0, ids).reshape(-1, 1),
+    ).reshape(cap_b, 4, c)
+    # invalid slots point at quad 0: zero them so no gradient leaks through their gathers
+    samples_f = samples_f * valid[:, None, None].to(samples_f.dtype)
+    # overwrite the fallback quads (out of place: autograd then drops the
+    # overwritten rows' cotangents); unused slots write a dummy row
+    padded = torch.cat([samples, samples.new_zeros((1, 4, c))], dim=0)
+    dest = torch.where(valid, ids, q)
+    return padded.index_copy(0, dest, samples_f)[:q]

@@ -27,7 +27,7 @@ import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
-SOURCES = ("raster_kernel.cu", "edge_kernel.cu", "edge_tex_kernel.cu")
+SOURCES = ("raster_kernel.cu", "edge_kernel.cu", "edge_tex_kernel.cu", "quad_blend_kernel.cu")
 
 # In a source checkout the library goes to build/kernels/ beside the package;
 # an installed copy builds under the user's cache instead of site-packages.
@@ -65,6 +65,10 @@ _SIGNATURES = {
     # table, counts, zbuf, obs, texture, buf_final, g_out, n_tiles, n_tx, tile_h, tile_w, cap, C, err,
     # tex_h, tex_w, g_table, g_buf0, g_texture, stream
     "edge_tex_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    # win, dv, du, ev, eu, n_quads, C, out, stream
+    "quad_blend_fwd": (_P, _P, _P, _P, _P, _I, _I, _P, _P),
+    # win, dv, du, ev, eu, ct, n_quads, C, d_win, d_ev, d_eu, stream
+    "quad_blend_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P),
 }
 # every kernel that can be launched is counted: the names are the entry points'
 KERNEL_NAMES = tuple(_SIGNATURES)

@@ -122,9 +122,11 @@ def prepare(scene: SceneBuffers):
     return ij_off, signed_area_v, draw, background
 
 
-def _refuse_off_slice(scene: SceneBuffers, sigma, tiling, aa_window, aa_tex_window, aa_tex_plan):
+def _refuse_off_slice(scene: SceneBuffers, sigma, tiling, aa_tex_plan):
     """Raise for what needs the untiled (sequential) passes, which this
-    package does not have yet."""
+    package does not have yet. Those are the only passes that read
+    ``aa_window`` and ``aa_tex_window``: every route that gets past here
+    ignores them, as the JAX package's tiled routes do."""
     if tiling is None:
         raise NotImplementedError("the untiled path (tiling=None) comes with the untiled-renderer slice")
     if scene.perspective_correct:
@@ -133,8 +135,6 @@ def _refuse_off_slice(scene: SceneBuffers, sigma, tiling, aa_window, aa_tex_wind
         )
     if not scene.strict_edge:
         raise NotImplementedError("strict_edge=False comes with the untiled-renderer slice")
-    if aa_window is not None or aa_tex_window is not None:
-        raise NotImplementedError("aa_window / aa_tex_window come with the untiled-renderer slice")
     if scene.texture is not None and sigma > 0 and aa_tex_plan is None:
         raise NotImplementedError(
             "a textured scene at sigma > 0 needs aa_tex_plan (an EdgeTexPlan) for the tiled textured edge pass; "
@@ -166,14 +166,17 @@ def render_scene(
     ``impl="reference"`` takes the plain versions on any device. A scene
     with a texture needs ``aa_tex_plan`` at ``sigma > 0``: its silhouette
     bands are split and compacted as the plan says and blended by the
-    textured edge kernel.
+    textured edge kernel. ``aa_window`` and ``aa_tex_window`` bound the
+    sequential edge pass of the untiled slice; the tiled routes here ignore
+    them, so a plan made for either route can be passed.
 
     Bins that overflow a capacity of ``tiling`` (or ``aa_edge_capacity``, or
-    the plan's ``seg_capacity``) drop entries silently, as in the JAX package; ``check_capacity=True``
+    the plan's ``seg_capacity``; the texture fetch's ``tex_tile_capacity``
+    and ``quad_fallback_capacity``) drop entries silently, as in the JAX package; ``check_capacity=True``
     raises ``RuntimeError`` naming the bin instead, at the cost of a host
     synchronisation per check.
     """
-    _refuse_off_slice(scene, sigma, tiling, aa_window, aa_tex_window, aa_tex_plan)
+    _refuse_off_slice(scene, sigma, tiling, aa_tex_plan)
     checks: Optional[list] = [] if check_capacity else None
     ij_off, signed_area_v, draw, background = prepare(scene)
 

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from deodr_tpu_torch.ops.common import bilinear_sample, inv3x3, safe_barycentric_matrices
+from deodr_tpu_torch.ops.common import bilinear_sample, bilinear_sample_quads, inv3x3, safe_barycentric_matrices
 from deodr_tpu_torch.ops.edge_aa import EdgeAAConfig, EdgeData
 from deodr_tpu_torch.ops.kernels import TileGrid
 from deodr_tpu_torch.ops.kernels.edge_kernel import edge_pass, edge_row_width
@@ -38,10 +38,7 @@ class TilingConfig(NamedTuple):
     defaults. Capacities bound per-tile bin sizes. This package bins
     densely: the two-level (``super_*``) and pair-expansion (``pair_*``)
     binners belong to a later part of the port and raise
-    ``NotImplementedError``. The JAX package's ``tex_tile_capacity`` and
-    ``tex_block_w`` compact the solid pass's texture fetch to 8-row blocks
-    because a TPU gather costs per row; here the fetch runs on the full
-    frame, so nothing would read them and they are not fields."""
+    ``NotImplementedError``."""
 
     tile_h: int = 64
     tile_w: int = 64
@@ -52,6 +49,16 @@ class TilingConfig(NamedTuple):
     drawn_capacity: int = 0
     # tile height of the edge pass (0 = tile_h); edge_capacity is sized for it
     edge_tile_h: int = 0
+    # 0 = fetch texels for the whole frame; else the solid pass's texture
+    # fetch runs only on the blocks of 8 rows × tex_block_w columns that hold
+    # a covered textured pixel, compacted to this static capacity
+    tex_tile_capacity: int = 0
+    # > 0 (with tex_tile_capacity): fetch per 2×2 screen quad from one 8×8
+    # texel window (kernel B4), re-fetching the quads whose taps leave the
+    # window per pixel through a compacted list of this capacity
+    quad_fallback_capacity: int = 0
+    # width of the texture-fetch blocks (0 = tile_w)
+    tex_block_w: int = 0
     super_ty: int = 0
     super_tx: int = 0
     super_capacity: int = 0
@@ -336,15 +343,18 @@ def _affine_attribute_maps(scene, v_xy, faces, faces_uv, textured, shaded) -> to
     return affine
 
 
-def _finish_shading(scene, vals, z_buffer, background):
+def _finish_shading(scene, vals, z_buffer, background, tex_px=None):
     """Texture fetch and background compositing; vals (H, W, D) in the
-    attribute order of :func:`_affine_attribute_maps`. The fetch runs on the
-    full frame (pixels that no textured triangle covers sample at uv = 0 and
-    are not selected)."""
+    attribute order of :func:`_affine_attribute_maps`. Without ``tex_px``
+    (the shaded texture samples, (H, W, C)) the fetch runs on the full frame
+    (pixels that no textured triangle covers sample at uv = 0 and are not
+    selected); :func:`_finish_shading_tile_tex` is the block-compacted
+    one."""
     c = scene.colors.shape[1]
     pix = vals[..., :c]
     if scene.texture is not None:
-        tex_px = bilinear_sample(scene.texture, vals[..., c : c + 2]) * vals[..., c + 2 : c + 3]
+        if tex_px is None:
+            tex_px = bilinear_sample(scene.texture, vals[..., c : c + 2]) * vals[..., c + 2 : c + 3]
         use_tex = vals[..., -1].detach() > 0.5
         pix = torch.where(use_tex[..., None], tex_px, pix)
     pix = torch.where(torch.isfinite(pix), pix, 0.0)
@@ -383,6 +393,63 @@ def raster_tables(scene, ij_off, draw, tiling: TilingConfig, checks=None):
     return RasterTables(affine_tile, setup_tile, counts.to(torch.int32), grid)
 
 
+def _finish_shading_tile_tex(scene, vals_pad, tiling: TilingConfig, grid: TileGrid, z_buffer, background, impl,
+                             checks=None):
+    """:func:`_finish_shading` with a block-compacted texture fetch: the
+    fetch runs only on the blocks of 8 rows × ``tex_block_w`` (or
+    ``tile_w``) columns that hold a covered textured pixel (by the textured
+    flag plane of the solid pass), compacted in order to
+    ``tex_tile_capacity`` slots ("texture tile compaction"), and its
+    samples are added back into the frame. With ``quad_fallback_capacity``
+    the blocks are fetched per 2×2 screen quad
+    (:func:`deodr_tpu_torch.ops.common.bilinear_sample_quads`). While the
+    capacities hold, the image equals the full-frame fetch's."""
+    bw = tiling.tex_block_w or tiling.tile_w
+    hp, wp = grid.padded_hw
+    if hp % 8 or wp % bw:
+        raise ValueError(f"texture-fetch blocks of 8×{bw} must tile the {hp}×{wp} padded frame")
+    n_by, n_bx = hp // 8, wp // bw
+    n_blocks = n_by * n_bx
+    k_cap = min(tiling.tex_tile_capacity, n_blocks)
+    c = scene.colors.shape[1]
+    d = vals_pad.shape[0]
+
+    def blocks(planes):  # (k, H', W') → (n_blocks, k, 8, bw)
+        k = planes.shape[0]
+        return planes.reshape(k, n_by, 8, n_bx, bw).permute(1, 3, 0, 2, 4).reshape(n_blocks, k, 8, bw)
+
+    flag = blocks(vals_pad[d - 1 : d].detach() > 0.5)[:, 0]  # (n_blocks, 8, bw)
+    occupied = flag.reshape(n_blocks, -1).any(dim=1)
+    if checks is not None:
+        checks.append(("texture tile compaction", occupied.sum(), k_cap))
+    tids, tvalid, _ = _compact_bins(occupied[None, :], k_cap)
+    tids, tvalid = tids[0], tvalid[0]
+    sel = blocks(vals_pad[c : c + 3]).reshape(n_blocks, 3 * 8 * bw).index_select(0, tids).reshape(k_cap, 3, 8, bw)
+    uv_px = torch.stack([sel[:, 0], sel[:, 1]], dim=-1)  # (K, 8, bw, 2)
+    lum = sel[:, 2]
+    tex_h, tex_w = scene.texture.shape[0], scene.texture.shape[1]
+    if tiling.quad_fallback_capacity and bw % 2 == 0 and tex_h % 2 == 0 and tex_w % 2 == 0 and min(tex_h, tex_w) >= 8:
+
+        def to_quads(a):  # (K, 8, bw, ...) → (K·4·bw/2, 4, ...), pixel 2·dy + dx of each quad
+            rest = a.shape[3:]
+            a = a.reshape((k_cap, 4, 2, bw // 2, 2) + rest).transpose(2, 3)
+            return a.reshape((k_cap * 4 * (bw // 2), 4) + rest)
+
+        samples = bilinear_sample_quads(scene.texture, to_quads(uv_px), to_quads(flag.index_select(0, tids)),
+                                        tiling.quad_fallback_capacity, checks, impl)
+        samples = samples.reshape(k_cap, 4, bw // 2, 2, 2, c).transpose(2, 3).reshape(k_cap, 8, bw, c)
+        tex_px = samples * lum[..., None]
+    else:
+        tex_px = bilinear_sample(scene.texture, uv_px) * lum[..., None]
+    tex_px = torch.where(torch.isfinite(tex_px), tex_px, 0.0)
+    # invalid slots point at block 0: zero their rows so that adding them changes nothing
+    tex_rows = (tex_px * tvalid[:, None, None, None].to(tex_px.dtype)).reshape(k_cap, 8 * bw * c)
+    full = tex_rows.new_zeros((n_blocks, 8 * bw * c)).index_add(0, tids, tex_rows)
+    tex_full = full.reshape(n_by, n_bx, 8, bw, c).transpose(1, 2).reshape(hp, wp, c)[: scene.height, : scene.width]
+    vals = vals_pad.permute(1, 2, 0)[: scene.height, : scene.width, :]
+    return _finish_shading(scene, vals, z_buffer, background, tex_full)
+
+
 def rasterize_tiled_kernel(scene, ij_off, draw, background, tiling: TilingConfig, impl="kernel", checks=None):
     """Tiled solid pass through the raster kernel → (image (H, W, C),
     z_buffer (H, W), max bin count). Counterpart of
@@ -391,8 +458,11 @@ def rasterize_tiled_kernel(scene, ij_off, draw, background, tiling: TilingConfig
     _, z_pad, vals_pad = raster_eval(tables.affine_tile, tables.setup_tile, tables.counts, tables.grid, impl)
     height, width = scene.height, scene.width
     z_buffer = z_pad[:height, :width]
-    vals = vals_pad.permute(1, 2, 0)[:height, :width, :]
-    image = _finish_shading(scene, vals, z_buffer, background)
+    if scene.texture is not None and tiling.tex_tile_capacity:
+        image = _finish_shading_tile_tex(scene, vals_pad, tiling, tables.grid, z_buffer, background, impl, checks)
+    else:
+        vals = vals_pad.permute(1, 2, 0)[:height, :width, :]
+        image = _finish_shading(scene, vals, z_buffer, background)
     return image, z_buffer, tables.counts.max()
 
 

@@ -14,7 +14,10 @@ of that path launched. The second holds the textured edge kernel against
 its plain version on the small mixed scene of the CPU tests, in float64 to
 1e-9 of scale (only the order of the atomic sums differs) and in float32 to
 chip_smoke.py's limits, then the whole textured ``render_scene`` with
-``impl="kernel"`` against ``impl="reference"``.
+``impl="kernel"`` against ``impl="reference"``. The last two hold kernel B4
+(the quad blend) against its plain versions, directly and through the quad
+fetch, and ``Scene3D`` with the quad fetch against the per-pixel fetch on
+the textured torus of tests/torch_port_scenes.py.
 """
 
 import numpy as np
@@ -105,3 +108,94 @@ def test_edge_tex_kernel_matches_plain_version(cuda_device, dtype, plan, error_m
     assert float((results["kernel"][0] - results["reference"][0]).abs().max()) <= lim_out
     for k in names:
         assert rel(results["kernel"][1][k], results["reference"][1][k]) <= lim_grad, k
+
+
+def _quad_blend_inputs(device, dtype, q=300, c=3, seed=2):
+    """Window rows and offsets 0..6 (taps in the window's last row and
+    column too), weights with the clamped values 0 and 1, a cotangent."""
+    rng = np.random.RandomState(seed)
+    win = torch.from_numpy(rng.randn(q, 64 * c)).to(device, dtype)
+    dv = torch.from_numpy(rng.randint(0, 7, (q, 4)).astype(np.int32)).to(device)
+    du = torch.from_numpy(rng.randint(0, 7, (q, 4)).astype(np.int32)).to(device)
+    dv[0], du[0] = 6, 6
+    ev = torch.from_numpy(rng.rand(q, 4)).to(device, dtype)
+    eu = torch.from_numpy(rng.rand(q, 4)).to(device, dtype)
+    ev[1], eu[1] = 0.0, 1.0
+    ct = torch.from_numpy(rng.randn(q, 4, c)).to(device, dtype)
+    return (win, dv, du, ev, eu), ct
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_quad_blend_kernel_matches_plain_version(cuda_device, dtype):
+    """B4 on random windows, and through the quad fetch on uv that runs past
+    every border of the texture (clamped taps) with seam quads in the
+    per-pixel fallback: forward equal to the plain version, gradients within
+    1e-12 (float64) or 1e-5 (float32) of their scale (index_add_ sums in
+    another order on the card)."""
+    from deodr_tpu_torch.ops import kernels
+    from deodr_tpu_torch.ops.common import bilinear_sample_quads
+    from deodr_tpu_torch.ops.kernels import quad_blend_kernel as qbk
+
+    lim = 1e-12 if dtype == torch.float64 else 1e-5
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1.0)
+
+    args, ct = _quad_blend_inputs(cuda_device, dtype)
+    kernels.reset_launches()
+    assert torch.equal(qbk.quad_blend_fwd(*args), qbk.quad_blend_fwd(*args, impl="reference"))
+    for a, b in zip(qbk.quad_blend_bwd(*args, ct), qbk.quad_blend_bwd(*args, ct, impl="reference")):
+        assert float(b.abs().max()) > 0 and rel(a, b) <= lim
+    assert kernels.LAUNCHES["quad_blend_fwd"] == 1 and kernels.LAUNCHES["quad_blend_bwd"] == 1
+
+    rng = np.random.RandomState(4)
+    th, tw, q = 32, 48, 256
+    texture = torch.from_numpy(rng.randn(th, tw, 3)).to(cuda_device, dtype)
+    uv = rng.uniform(-4.0, max(th, tw) + 4.0, (q, 1, 2)) + rng.uniform(0, 2.0, (q, 4, 2))
+    uv[:40, 3] = rng.uniform(0, 20, (40, 2)) + 20.0  # seam quads
+    uv = torch.from_numpy(uv).to(cuda_device, dtype)
+    mask = torch.from_numpy(rng.rand(q, 4) > 0.2).to(cuda_device)
+    weight = torch.from_numpy(rng.randn(q, 4, 3)).to(cuda_device, dtype) * mask[..., None]
+    results = {}
+    for impl in ("kernel", "reference"):
+        t, u = texture.clone().requires_grad_(True), uv.clone().requires_grad_(True)
+        out = bilinear_sample_quads(t, u, mask, 64, impl=impl)
+        results[impl] = (out.detach(),) + torch.autograd.grad((out * weight).sum(), (t, u))
+    torch.cuda.synchronize()
+    assert torch.equal(results["kernel"][0], results["reference"][0])
+    for a, b in zip(results["kernel"][1:], results["reference"][1:]):
+        assert rel(a, b) <= lim
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_scene3d_quad_fetch_matches_per_pixel_fetch(cuda_device, dtype):
+    """Scene3D on the textured torus with the quad fetch (kernel B4) against
+    the per-pixel fetch, on the kernels: image within 1e-5 (float32) or 1e-12
+    (float64), gradients within 1e-3 or 1e-9 of their scale."""
+    from deodr_tpu_torch.camera import Camera
+    from deodr_tpu_torch.geometry.mesh import ColoredTriMesh
+    from deodr_tpu_torch.ops import kernels
+    from deodr_tpu_torch.scene import Scene3D
+    from torch_port_scenes import torus_arrays, torus_camera_arrays
+
+    lim_img, lim_grad = (1e-12, 1e-9) if dtype == torch.float64 else (1e-5, 1e-3)
+    a = torus_arrays()
+    camera = Camera(*torus_camera_arrays())
+    weight = torch.from_numpy(np.cos(np.arange(96 * 128 * 3)).reshape(96, 128, 3)).to(cuda_device, dtype)
+    results = {}
+    for quad in (False, True):
+        mesh = ColoredTriMesh(a["faces"], torch.from_numpy(a["vertices"]).to(cuda_device, dtype), clockwise=False,
+                              faces_uv=a["faces_uv"], uv=a["uv"], texture=a["texture"])
+        scene = Scene3D(sigma=1.0, device=cuda_device, quad_fetch=quad)
+        scene.set_mesh(mesh)
+        scene.set_light(np.array([-0.4, -0.4, -0.8]), 0.4)
+        scene.set_background_color(np.array([0.2, 0.3, 0.5]))
+        kernels.reset_launches()
+        image = scene.render(camera, check_capacity=True)
+        scene.render_backward(weight)
+        assert (kernels.LAUNCHES["quad_blend_fwd"] > 0) == quad and (kernels.LAUNCHES["quad_blend_bwd"] > 0) == quad
+        results[quad] = (image, mesh._vertices_b, scene.light_directional_b, mesh.uv_b, mesh.texture_b)
+    torch.cuda.synchronize()
+    assert float((results[True][0] - results[False][0]).abs().max()) <= lim_img
+    for a_q, a_p in zip(results[True][1:], results[False][1:]):
+        assert float((a_q - a_p).abs().max()) <= lim_grad * max(float(a_p.abs().max()), 1.0)

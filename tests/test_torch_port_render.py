@@ -258,8 +258,10 @@ def test_check_capacity_raises_on_undersized_tiling():
 def test_off_slice_options_raise(change):
     """What needs the untiled (sequential) passes or the large-mesh binners
     raises: among them a textured scene at σ > 0 without a texture plan
-    ("texture"), and one with a plan but perspective-correct interpolation
-    ("aa_tex_plan"), which the JAX package sends to its sequential pass."""
+    ("texture"), one with a plan but perspective-correct interpolation
+    ("aa_tex_plan"), which the JAX package sends to its sequential pass, and
+    the untiled pass's windows ("aa_window", "aa_tex_window"; the tiled
+    routes accept and ignore them, tests/test_torch_port_scene3d.py)."""
     scene = scene_buffers_from_numpy(_fields(), device="cpu")
     kwargs = dict(tiling=port.TilingConfig(*TILING))
     if change == "untiled":
@@ -274,10 +276,10 @@ def test_off_slice_options_raise(change):
         kwargs["tiling"] = kwargs["tiling"]._replace(pair_ry=2, pair_rx=2)
     elif change == "super":
         kwargs["tiling"] = kwargs["tiling"]._replace(super_ty=1, super_tx=1, super_capacity=8)
-    elif change == "aa_window":
-        kwargs["aa_window"] = (32, 32)
+    elif change == "aa_window":  # the windows are read by the untiled pass only (the tiled routes ignore them)
+        kwargs.update(tiling=None, aa_window=(32, 32))
     elif change == "aa_tex_window":
-        kwargs["aa_tex_window"] = (16, 16)
+        kwargs.update(tiling=None, aa_tex_window=(16, 16))
     else:
         scene = dataclasses.replace(scene, texture=torch.zeros(4, 4, 3, dtype=torch.float64), perspective_correct=True)
         kwargs["aa_tex_plan"] = port.EdgeTexPlan()
@@ -296,6 +298,7 @@ def test_port_and_chip_smoke_import_no_jax():
     code = (
         "import sys; import deodr_tpu_torch, deodr_tpu_torch.ops.tiled, deodr_tpu_torch.bench_scene, chip_smoke; "
         "import deodr_tpu_torch.duck_scene, deodr_tpu_torch.io.obj, deodr_tpu_torch.ops.kernels.edge_tex_kernel; "
+        "import deodr_tpu_torch.scene, deodr_tpu_torch.ops.kernels.quad_blend_kernel; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'deodr_tpu.')) or m == 'deodr_tpu']; "
         "assert not bad, bad"
     )

@@ -90,3 +90,65 @@ def tex_tables(plan, error_mode, dtype=torch.float64, device="cpu"):
         buffer = ((image - obs) ** 2).sum(-1) if error_mode else image
         buf, z_pad, obs_pad = pad_edge_buffers(cfg, buffer, z_buffer, obs, et.grid)
     return et, scene.texture, buf, z_pad, obs_pad
+
+
+# ------------------------------------------------------ a textured torus (Scene3D)
+
+TORUS_HW = (96, 128)
+
+
+def torus_arrays(textured=True, n=16, m=12, tex_size=256, uv_step=(15.0, 20.0), seed=0) -> dict:
+    """A closed torus of 2·n·m faces (384 by default: above the 256 faces
+    under which the planner gives no tiling) as numpy arrays for the
+    ``ColoredTriMesh`` of either package: ``faces``, ``vertices`` (jittered
+    from a seed), ``clockwise`` and either ``faces_uv``, ``uv`` (``uv_step``
+    texels per segment around and across, with a seam where the parameter
+    wraps; the default steps give silhouette edges longer than 12 texels,
+    which the planner splits) and a ``tex_size``² ``texture``, or per-vertex
+    ``colors``."""
+    rng = np.random.RandomState(seed)
+    theta = 2 * np.pi * np.arange(n) / n
+    phi = 2 * np.pi * np.arange(m) / m
+    tt, pp = np.meshgrid(theta, phi, indexing="ij")
+    vertices = np.stack([(1 + 0.4 * np.cos(pp)) * np.cos(tt), (1 + 0.4 * np.cos(pp)) * np.sin(tt), 0.4 * np.sin(pp)],
+                        axis=-1).reshape(-1, 3)
+    vertices = vertices + rng.uniform(-0.01, 0.01, vertices.shape)
+    i, j = np.meshgrid(np.arange(n), np.arange(m), indexing="ij")
+    i, j = i.ravel(), j.ravel()
+
+    def vid(a, b):
+        return (a % n) * m + b % m
+
+    def uvid(a, b):
+        return a * (m + 1) + b
+
+    faces = np.concatenate([np.stack([vid(i, j), vid(i + 1, j), vid(i + 1, j + 1)], 1),
+                            np.stack([vid(i, j), vid(i + 1, j + 1), vid(i, j + 1)], 1)]).astype(np.int32)
+    faces_uv = np.concatenate([np.stack([uvid(i, j), uvid(i + 1, j), uvid(i + 1, j + 1)], 1),
+                               np.stack([uvid(i, j), uvid(i + 1, j + 1), uvid(i, j + 1)], 1)]).astype(np.int32)
+    tri = vertices[faces]
+    volume = np.einsum("ij,ij->i", tri[:, 0], np.cross(tri[:, 1], tri[:, 2])).sum()
+    if volume < 0:
+        faces, faces_uv = faces[:, ::-1].copy(), faces_uv[:, ::-1].copy()
+    out = dict(faces=faces, vertices=vertices, clockwise=False)
+    if textured:
+        ui, vj = np.meshgrid(np.arange(n + 1), np.arange(m + 1), indexing="ij")
+        uv = np.stack([ui.ravel() * uv_step[0] + 3.3, vj.ravel() * uv_step[1] + 2.7], axis=1)
+        out.update(faces_uv=faces_uv, uv=uv, texture=rng.rand(tex_size, tex_size, 3))
+    else:
+        out.update(colors=rng.rand(len(vertices), 3))
+    return out
+
+
+def torus_camera_arrays(view=0):
+    """(extrinsic, intrinsic, height, width) of an oblique view of the
+    torus; ``view=1`` is the same camera turned by a few degrees."""
+    a = np.deg2rad(55.0 + 4.0 * view)
+    b = np.deg2rad(10.0 + 3.0 * view)
+    rx = np.array([[1, 0, 0], [0, np.cos(a), -np.sin(a)], [0, np.sin(a), np.cos(a)]])
+    rz = np.array([[np.cos(b), -np.sin(b), 0], [np.sin(b), np.cos(b), 0], [0, 0, 1]])
+    rot = rx @ rz
+    extrinsic = np.column_stack([rot, [0.013, -0.021, 4.1]])
+    h, w = TORUS_HW
+    intrinsic = np.array([[131.7, 0, w / 2 + 0.37], [0, 131.7, h / 2 - 0.29], [0, 0, 1]])
+    return extrinsic, intrinsic, h, w
