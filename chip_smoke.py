@@ -54,7 +54,10 @@ Phases, each of which fails the run (non-zero exit) on any miss:
    ``bench``, ``duck``, ``duck_scene3d`` and ``duck_quad``. ``ms`` times calls
    of the wrapper with CUDA events, host cost of the call included;
    ``device_ms`` (and ``library_device_ms``) is the device time of one call
-   from ``torch.profiler``, every kernel's in one profiler session;
+   from ``torch.profiler``, every kernel's in one profiler session. The same
+   session counts the device operations of one call of the raster and
+   quad-blend backward wrappers, which must be one: the kernel, no memset
+   beside it;
 7. last line ``{"ok": true, "device": {...}}``.
 
 The scenes come from ``deodr_tpu_torch.bench_scene`` (numpy, seed 0, as
@@ -147,13 +150,13 @@ def device_times(fns, device, reps: int = 10):
     function run in a window of their own, 2 ms of idle card before and
     after, and the durations of the device operations that start within a
     window are summed. Beside ``time_ms`` it tells a kernel's own time from
-    the host's cost of calling it → key → ms; None without a card or
-    device events."""
+    the host's cost of calling it → key → (ms, device operations) per call;
+    (None, None) without a card or device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     if device.type != "cuda" or not fns:
-        return dict.fromkeys(fns)
+        return dict.fromkeys(fns, (None, None))
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
@@ -173,12 +176,12 @@ def device_times(fns, device, reps: int = 10):
         if ops and len(windows) == len(fns):
             break
     else:
-        return dict.fromkeys(fns)
+        return dict.fromkeys(fns, (None, None))
     out = {}
     for i, key in enumerate(fns):
         w = windows[f"smoke window {i}"]
         inside = [e.time_range.elapsed_us() for e in ops if w.start - 1000 <= e.time_range.start <= w.end + 1000]
-        out[key] = sum(inside) / 1e3 / reps if inside else None
+        out[key] = (sum(inside) / 1e3 / reps, len(inside) / reps) if inside else (None, None)
     return out
 
 
@@ -238,6 +241,10 @@ def check_raster_kernels(scene, tiling, device, say, gen):
             plain_ms=time_ms(lambda: rk.raster_bwd(s_ref, g_vals, rt.counts, grid, cap_r, impl="reference"), 3, device),
             bound=bound_ms(p_total * (4 + esz * d) + rows * 3 * d * esz, p_total * 6 * d),
         )
+        # the kept bound writes the used rows only; the kernel also writes the zero rows up to cap
+        full = bound_ms(p_total * (4 + esz * d) + grid.n_tiles * cap_r * 3 * d * esz, p_total * 6 * d)[0]
+        say(f"raster_bwd bound {out['raster_bwd']['bound'][0]:.5f} ms with the {rows} used rows written, "
+            f"{full:.5f} ms with all {grid.n_tiles} x {cap_r} rows written")
     return out
 
 
@@ -908,7 +915,17 @@ def run(device="cuda", height=512, width=512, n_tri=200, smi_line=None):
     say(f"device times of {len(fns)} functions in one profiler session: {time.perf_counter() - t0:.1f} s")
 
     def device_time(m, f):
-        return times.get((id(m), f))
+        return times.get((id(m), f), (None, None))[0]
+
+    # a redesigned wrapper launches one device kernel per call: no memset beside it
+    for path_name, per_kernel in measured.items():
+        for name in ("raster_bwd", "quad_blend_bwd"):
+            if name in per_kernel:
+                n_ops = times[(id(per_kernel[name]), "device_fn")][1]
+                say(f"{name} on {path_name}: {'not measured' if n_ops is None else f'{n_ops:g}'} device operations "
+                    "per wrapper call (expected 1)")
+                check(device.type != "cuda" or n_ops == 1,
+                      f"{name} is not one device operation per wrapper call on {path_name}")
 
     def library_device_ms(m):
         t = device_time(m, "library_device_fn")

@@ -28,22 +28,26 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-// Pixel owned by this thread: tile blockIdx.x, pixel blockIdx.y·256 + tid.
 struct Pixel {
   bool inside;    // inside the tile (the last block of a tile may overhang)
   size_t offset;  // index into an (H', W') plane
   int x, y;       // global pixel coordinates
 };
 
-__device__ __forceinline__ Pixel pixel_of(int tile, int n_tx, int tile_h, int tile_w) {
+// Pixel `local` (row-major within the tile) of tile `tile`.
+__device__ __forceinline__ Pixel pixel_at(int tile, int local, int n_tx, int tile_h, int tile_w) {
   Pixel p;
-  const int local = blockIdx.y * blockDim.x + threadIdx.x;
   p.inside = local < tile_h * tile_w;
   const int ty = tile / n_tx, tx = tile % n_tx;
   p.y = ty * tile_h + (p.inside ? local / tile_w : 0);
   p.x = tx * tile_w + (p.inside ? local % tile_w : 0);
   p.offset = (size_t)p.y * (size_t)(n_tx * tile_w) + (size_t)p.x;
   return p;
+}
+
+// Pixel owned by this thread: tile blockIdx.x, pixel blockIdx.y·256 + tid.
+__device__ __forceinline__ Pixel pixel_of(int tile, int n_tx, int tile_h, int tile_w) {
+  return pixel_at(tile, blockIdx.y * blockDim.x + threadIdx.x, n_tx, tile_h, tile_w);
 }
 
 // ---- shared by the edge-pass kernels (edge_kernel.cu, edge_tex_kernel.cu) ----

@@ -52,8 +52,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # setup, affine, counts, n_tiles, n_tx, tile_h, tile_w, cap, d, slot_map, z, vals, stream
     "raster_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
-    # slot_map, g_vals, counts, n_tiles, n_tx, tile_h, tile_w, cap, d, g_table, stream
-    "raster_bwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
+    # slot_map, g_vals, counts, n_tiles, n_tx, tile_h, tile_w, cap, d, threads, blocks_per_tile, g_table, stream
+    "raster_bwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     # table, counts, zbuf, obs, buf_in, n_tiles, n_tx, tile_h, tile_w, cap, C, err, buf_out, stream
     "edge_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     # table, counts, zbuf, obs, buf_final, g_out, n_tiles, n_tx, tile_h, tile_w, cap, C, err,

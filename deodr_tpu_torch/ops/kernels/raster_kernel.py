@@ -17,7 +17,8 @@ Layouts (one row per slot, the natural result of gathering table rows):
 - slot_map     (H', W') int32      winning slot, ``cap`` where nothing covers
 - z            (H', W')            winning depth, +inf where nothing covers
 - vals         (D, H', W')         winner's A(x, y), 0 where nothing covers
-- g_table      (n_tiles, cap, 3D)  [Σ g·x | Σ g·y | Σ g]; rows ≥ count are 0
+- g_table      (n_tiles, cap, 3D)  [Σ g·x | Σ g·y | Σ g]; rows ≥ count are 0,
+                                   every entry written by the kernel
 
 The TPU kernel's trailing "miss" column of the affine table and its slot
 pairing are TPU devices (a one-hot contraction and VLIW latency hiding);
@@ -26,6 +27,8 @@ ascending order keeps the tie rule: the lowest slot wins.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -38,6 +41,36 @@ _S_XLO, _S_XHI = 16, 17
 _S_Z = 18
 _S_VALID = 21
 SETUP_WIDTH = 22
+# shared memory one block can use on the H100 (227 KB), and the largest portable thread-block cluster
+MAX_SMEM_BYTES = 232_448
+MAX_CLUSTER = 8
+RASTER_BWD_THREADS = 256
+
+
+class RasterBwdShape(NamedTuple):
+    """Launch shape of the backward kernel: each tile's pixels are shared by
+    one cluster of ``blocks_per_tile`` blocks of ``threads`` threads (a
+    block loops when the cluster has fewer threads than the tile has
+    pixels), and every block holds a ``smem_bytes`` accumulator."""
+
+    threads: int
+    blocks_per_tile: int
+    smem_bytes: int
+
+
+def raster_bwd_launch_shape(tile_h: int, tile_w: int, cap: int, d: int, itemsize: int) -> RasterBwdShape:
+    """Threads per block (256, fewer on a tile of fewer pixels), blocks per
+    tile (the cluster size, at most 8; a block loops over the pixels beyond
+    8 × 256) and shared bytes per block (a cap × 3D accumulator) of the
+    backward kernel; raises ``ValueError`` where the accumulator does not fit
+    a block's shared memory."""
+    smem = cap * 3 * d * itemsize
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"raster_bwd: cap={cap} slots × 3·D={3 * d} values × {itemsize} bytes = {smem} bytes of "
+                         f"shared memory, above the {MAX_SMEM_BYTES} bytes a block can use")
+    n_px = tile_h * tile_w
+    threads = min(RASTER_BWD_THREADS, max(32, -(-n_px // 32) * 32))
+    return RasterBwdShape(threads, max(1, min(MAX_CLUSTER, -(-n_px // threads))), smem)
 
 
 def raster_fwd_reference(setup_tile, affine_tile, counts, grid: TileGrid):
@@ -132,7 +165,8 @@ def raster_fwd(setup_tile, affine_tile, counts, grid: TileGrid, impl: str = "ker
 
 
 def raster_bwd(slot_map, g_vals, counts, grid: TileGrid, cap: int, impl: str = "kernel"):
-    """Backward solid pass → g_table (n_tiles, cap, 3D)."""
+    """Backward solid pass → g_table (n_tiles, cap, 3D), launched in the
+    shape of :func:`raster_bwd_launch_shape`."""
     if not kernels.use_kernel(g_vals, impl):
         return raster_bwd_reference(slot_map, g_vals, counts, grid, cap)
     kernels.check_float(g_vals, "g_vals")
@@ -143,11 +177,12 @@ def raster_bwd(slot_map, g_vals, counts, grid: TileGrid, cap: int, impl: str = "
     kernels.check_tensor(slot_map, "slot_map", torch.int32, (hp, wp))
     kernels.check_tensor(g_vals, "g_vals", dtype, (d, hp, wp))
     kernels.check_tensor(counts, "counts", torch.int32, (nt,))
-    g_table = torch.zeros((nt, cap, 3 * d), dtype=dtype, device=g_vals.device)
+    shape = raster_bwd_launch_shape(grid.tile_h, grid.tile_w, cap, d, g_vals.element_size())
+    g_table = torch.empty((nt, cap, 3 * d), dtype=dtype, device=g_vals.device)  # the kernel writes every entry
     kernels.launch(
         "raster_bwd", dtype,
         slot_map.data_ptr(), g_vals.data_ptr(), counts.data_ptr(),
-        nt, grid.n_tx, grid.tile_h, grid.tile_w, cap, d, g_table.data_ptr(),
+        nt, grid.n_tx, grid.tile_h, grid.tile_w, cap, d, shape.threads, shape.blocks_per_tile, g_table.data_ptr(),
     )
     return g_table
 

@@ -17,7 +17,10 @@ chip_smoke.py's limits, then the whole textured ``render_scene`` with
 ``impl="kernel"`` against ``impl="reference"``. The last two hold kernel B4
 (the quad blend) against its plain versions, directly and through the quad
 fetch, and ``Scene3D`` with the quad fetch against the per-pixel fetch on
-the textured torus of tests/torch_port_scenes.py.
+the textured torus of tests/torch_port_scenes.py. The last two hold the
+redesigned backward kernels against their plain versions on edge cases:
+B1b at every tile height the planner picks (every cluster shape) with
+uniform, striped and run-length slot maps, and B4b at every channel count.
 """
 
 import numpy as np
@@ -199,3 +202,110 @@ def test_scene3d_quad_fetch_matches_per_pixel_fetch(cuda_device, dtype):
     assert float((results[True][0] - results[False][0]).abs().max()) <= lim_img
     for a_q, a_p in zip(results[True][1:], results[False][1:]):
         assert float((a_q - a_p).abs().max()) <= lim_grad * max(float(a_p.abs().max()), 1.0)
+
+
+def _rel(a, b):
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1.0)
+
+
+def _prefill_allocator(numel, dtype, device):
+    """Leave NaN in the caching allocator's next block of this size, so an
+    output from torch.empty shows any entry the kernel fails to write."""
+    torch.full((numel,), float("nan"), dtype=dtype, device=device)
+    torch.cuda.synchronize()
+
+
+def _raster_bwd_inputs(device, dtype, tile_h, pattern, cap=24, d=7, seed=0):
+    """A 2×3 grid of tile_h×128 tiles: tile 0 has count 0, tile 1 a count
+    above cap (clamped), the others counts below cap. The slot map is one
+    slot per tile (uniform warps), 1-pixel-wide stripes (every lane its own
+    run) or random runs of 1..40 pixels along the rows, with misses (cap)
+    and slots at or above the tile's count mixed in."""
+    from deodr_tpu_torch.ops.kernels import TileGrid, from_tiles
+
+    rng = np.random.RandomState(seed)
+    grid = TileGrid(2, 3, tile_h, 128)
+    counts = np.array([0, cap + 5, 10, 17, 1, cap - 1], np.int32)
+    slots = np.empty((grid.n_tiles, tile_h, 128), np.int32)
+    for t in range(grid.n_tiles):
+        n = max(min(int(counts[t]), cap), 1)
+        if pattern == "uniform":
+            slots[t] = n - 1
+        elif pattern == "stripes":
+            slots[t] = np.arange(128)[None, :] % n
+        else:
+            flat = np.empty(tile_h * 128, np.int32)
+            i = 0
+            while i < flat.size:
+                run = rng.randint(1, 41)
+                flat[i:i + run] = rng.randint(0, cap + 1)
+                i += run
+            slots[t] = flat.reshape(tile_h, 128)
+    slot_map = from_tiles(torch.from_numpy(slots), grid).contiguous().to(device)
+    hp, wp = grid.padded_hw
+    g_vals = torch.from_numpy(rng.randn(d, hp, wp)).to(device, dtype)
+    return slot_map, g_vals, torch.from_numpy(counts).to(device), grid, cap
+
+
+@pytest.mark.parametrize("pattern", ["uniform", "stripes", "runs"])
+@pytest.mark.parametrize("tile_h", [8, 16, 32, 48])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_raster_bwd_kernel_matches_plain_version(cuda_device, dtype, tile_h, pattern):
+    """B1b against its plain version at every cluster shape of the planner's
+    tile heights: within 1e-12 (float64) or 1e-3 (float32) of scale; the
+    output comes from torch.empty, so rows at or above a tile's count must be
+    written exactly 0 (a NaN-filled block waits in the allocator), and one
+    wrapper call is one launch."""
+    from deodr_tpu_torch.ops import kernels
+    from deodr_tpu_torch.ops.kernels import raster_kernel as rk
+
+    lim = 1e-12 if dtype == torch.float64 else 1e-3
+    slot_map, g_vals, counts, grid, cap = _raster_bwd_inputs(cuda_device, dtype, tile_h, pattern)
+    want = rk.raster_bwd(slot_map, g_vals, counts, grid, cap, impl="reference")
+    assert float(want.abs().max()) > 0
+    _prefill_allocator(want.numel(), dtype, cuda_device)
+    kernels.reset_launches()
+    got = rk.raster_bwd(slot_map, g_vals, counts, grid, cap)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["raster_bwd"] == 1
+    assert bool(torch.isfinite(got).all())
+    for t, n in enumerate(counts.clamp(max=cap).tolist()):
+        assert bool((got[t, n:] == 0).all()), t
+    assert _rel(got, want) <= lim
+
+
+@pytest.mark.parametrize("q", [5, 300])
+@pytest.mark.parametrize("c", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_quad_blend_bwd_kernel_matches_plain_version(cuda_device, dtype, c, q):
+    """B4b at every channel count, with Q below and not a multiple of the 32
+    quads a block stages, and tap offsets beyond 0..6 (clamped at 0 and 6):
+    d_win, d_ev and d_eu within 1e-12 (float64) or 1e-5 (float32) of
+    scale, window entries no tap reads exactly 0 (d_win comes from
+    torch.empty_like; a NaN-filled block waits in the allocator)."""
+    from deodr_tpu_torch.ops import kernels
+    from deodr_tpu_torch.ops.kernels import quad_blend_kernel as qbk
+
+    lim = 1e-12 if dtype == torch.float64 else 1e-5
+    rng = np.random.RandomState(10 * c + q)
+    win = torch.from_numpy(rng.randn(q, 64 * c)).to(cuda_device, dtype)
+    dv = torch.from_numpy(rng.randint(-3, 10, (q, 4)).astype(np.int32)).to(cuda_device)
+    du = torch.from_numpy(rng.randint(-3, 10, (q, 4)).astype(np.int32)).to(cuda_device)
+    dv[0], du[0], dv[1], du[1] = 6, 0, -2, 9
+    ev = torch.from_numpy(rng.rand(q, 4)).to(cuda_device, dtype)
+    eu = torch.from_numpy(rng.rand(q, 4)).to(cuda_device, dtype)
+    ct = torch.from_numpy(rng.randn(q, 4, c)).to(cuda_device, dtype)
+    args = (win, dv, du, ev, eu, ct)
+    want = qbk.quad_blend_bwd(*args, impl="reference")
+    _prefill_allocator(win.numel(), dtype, cuda_device)
+    kernels.reset_launches()
+    got = qbk.quad_blend_bwd(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["quad_blend_bwd"] == 1
+    for name, a, b in zip(("d_win", "d_ev", "d_eu"), got, want):
+        assert float(b.abs().max()) > 0 and _rel(a, b) <= lim, name
+    pos = ((dv.clamp(0, 6).long() * 8 + du.clamp(0, 6).long())[..., None]
+           + torch.tensor([0, 1, 8, 9], device=cuda_device)).reshape(q, 16)
+    read = torch.zeros((q, 64), dtype=torch.bool, device=cuda_device).scatter_(1, pos, True)
+    unread = ~read[:, :, None].expand(q, 64, c).reshape(q, 64 * c)
+    assert bool((got[0][unread] == 0).all()) and bool(torch.isfinite(got[0]).all())

@@ -165,3 +165,27 @@ def test_wrappers_refuse_unknown_impl():
     rt, _, _, _, _ = _tables(torch.float32, 48)
     with pytest.raises(ValueError):
         rk.raster_fwd(rt.setup_tile, rt.affine_tile, rt.counts, rt.grid, impl="pallas")
+
+
+@pytest.mark.parametrize("d", [3, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("tile_h,blocks", [(8, 4), (16, 8), (32, 8), (48, 8)])
+def test_raster_bwd_launch_shape(tile_h, blocks, dtype, d):
+    """The backward kernel's launch shape at the planner's tile heights
+    (width 128): a tile's blocks form one portable cluster (≤ 8 blocks of
+    256 threads, looping over the rows beyond 16), each with a cap × 3D
+    accumulator."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    shape = rk.raster_bwd_launch_shape(tile_h, 128, 56, d, itemsize)
+    assert shape == (256, blocks, 56 * 3 * d * itemsize)
+    assert shape.threads * shape.blocks_per_tile == min(tile_h * 128, rk.MAX_CLUSTER * rk.RASTER_BWD_THREADS)
+
+
+def test_raster_bwd_launch_shape_refuses_what_no_block_holds():
+    """cap × 3D × itemsize above the 232448 bytes of shared memory a block
+    can use raises, naming cap, D and the limit; a tile smaller than the
+    block gets fewer threads."""
+    assert rk.raster_bwd_launch_shape(16, 128, 1383, 7, 8).smem_bytes == 232_344
+    with pytest.raises(ValueError, match=r"cap=1384 .*3·D=21 .*232448"):
+        rk.raster_bwd_launch_shape(16, 128, 1384, 7, 8)
+    assert rk.raster_bwd_launch_shape(2, 40, 8, 3, 4) == (96, 1, 8 * 9 * 4)
