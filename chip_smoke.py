@@ -10,9 +10,10 @@ Phases, each of which fails the run (non-zero exit) on any miss:
 3. the untextured path on the bench scene (512², 200 triangles, 48×128
    tiles, float32). The raster and edge kernels against their plain PyTorch
    versions on the card: slot_map exact, z within 1e-5, images within 1e-4,
-   gradient tables within 1e-3 of their scale; times of kernel and plain
-   version. Then ``render_scene`` forward + backward at σ = 0 and σ = 1,
-   image and error mode, with ``check_capacity=True``, held against the
+   gradient tables within 1e-3 of their scale (the edge backward's from two
+   calls bit-identical); times of kernel and plain version. Then
+   ``render_scene`` forward + backward at σ = 0 and σ = 1, image and error
+   mode, with ``check_capacity=True``, held against the
    same call with ``impl="reference"``; launch counts are zeroed just
    before and read just after. Then a 20-step gradient descent on ``ij``
    and ``colors`` towards the unperturbed render (the loss must fall), the
@@ -23,7 +24,8 @@ Phases, each of which fails the run (non-zero exit) on any miss:
    the 512² texture, σ = 1, the plan of ``deodr_tpu_torch.duck_scene``).
    The textured edge kernel against its plain version in image and error
    mode (buffer within 1e-4, gradient rows and texture gradient within
-   1e-3 of their scale: float32 atomics sum in another order) and the
+   1e-3 of their scale: float32 atomics sum in another order; gradient rows
+   from two calls bit-identical) and the
    raster kernel again with its 7 attribute planes. Then ``render_scene``
    forward + backward with ``check_capacity=True`` against
    ``impl="reference"``: image, z-buffer and the gradients to ij, uv, shade
@@ -55,9 +57,12 @@ Phases, each of which fails the run (non-zero exit) on any miss:
    of the wrapper with CUDA events, host cost of the call included;
    ``device_ms`` (and ``library_device_ms``) is the device time of one call
    from ``torch.profiler``, every kernel's in one profiler session. The same
-   session counts the device operations of one call of the raster and
-   quad-blend backward wrappers, which must be one: the kernel, no memset
-   beside it;
+   session counts the device operations of one call of the backward
+   wrappers, which must be one for the raster, quad-blend and edge backward
+   (the kernel, no memset beside it) and two for the textured edge backward
+   (the texture gradient's zero-fill and the kernel). Each backward bound is
+   printed twice: with the used rows of its table written, and with the
+   whole table (the zero rows up to the capacity) written;
 7. last line ``{"ok": true, "device": {...}}``.
 
 The scenes come from ``deodr_tpu_torch.bench_scene`` (numpy, seed 0, as
@@ -83,7 +88,10 @@ PEAK_F32_OPS_S = 67e12
 AA_EDGE_CAPACITY = 600
 # float operations per (pixel, slot) visit of each kernel's per-slot test,
 # counted from the kernel source (multiplies, adds, compares); the blend of
-# the few pixels inside a band is left out, so the bound stays a lower bound
+# the few pixels inside a band is left out, so the bound stays a lower bound.
+# The raster kernel visits every pixel of a tile per slot; an edge kernel
+# needs to visit only the pixels where the band's clip planes and y range
+# hold (edge_kernel.covered_visits), the rest fail on a whole region at once
 OPS_PER_VISIT = {"raster_fwd": 33, "edge_fwd": 33, "edge_bwd": 33, "edge_tex_fwd": 33, "edge_tex_bwd": 33}
 # the main paths whose measurements each kernel's records carry: the kernels line has one record per (kernel,
 # path). "duck" is render_scene on the duck's constant plan, "duck_scene3d" and "duck_quad" Scene3D on the
@@ -190,6 +198,70 @@ def bound_ms(n_bytes: float, n_ops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def check_edge_bwd_repeat(bwd, bargs, outs, tag, say):
+    """A second call of an edge backward wrapper gives bit-identical
+    gradient rows and buffer cotangent: the kernels sum in a fixed order."""
+    again = bwd(*bargs)
+    check(torch.equal(again[0], outs[0]) and torch.equal(again[1], outs[1]),
+          f"{tag}: two calls gave different g_rows or g_buf0")
+    say(f"{tag}: two calls gave bit-identical g_rows and g_buf0")
+
+
+def bench_setup(device, height=512, width=512, n_tri=200):
+    """The bench scene (seed 0, as bench.py builds it), its tiling and the
+    observation → (fields, scene, tiling, obs)."""
+    from deodr_tpu_torch import scene_buffers_from_numpy, suggest_tiling
+    from deodr_tpu_torch.bench_scene import bench_scene_fields
+
+    fields = bench_scene_fields(height, width, n_tri)
+    scene = scene_buffers_from_numpy(fields, device=device, dtype=torch.float32)
+    tiling = suggest_tiling(fields["ij"], fields["faces"], height, width, sigma=1.0,
+                            edgeflags=fields["edgeflags"], margin=1.0, for_pallas=True, bucket_mode="exact")
+    obs = torch.from_numpy(np.random.RandomState(3).rand(height, width, 3).astype(np.float32)).to(device)
+    return fields, scene, tiling, obs
+
+
+def duck_setup(device):
+    """The duck scene and its observation, the render on the plan constants
+    of deodr_tpu_torch.duck_scene brightened by 0.05 → (fields, scene, obs)."""
+    from deodr_tpu_torch import duck_scene as ds
+    from deodr_tpu_torch import render_scene, scene_buffers_from_numpy
+
+    fields = ds.duck_scene_fields()
+    scene = scene_buffers_from_numpy(fields, device=device, dtype=torch.float32)
+    with torch.no_grad():
+        image, _, _ = render_scene(scene, ds.DUCK_SIGMA, aa_edge_capacity=ds.DUCK_AA_EDGE_CAPACITY,
+                                   tiling=ds.DUCK_TILING, aa_tex_plan=ds.DUCK_TEX_PLAN)
+    return fields, scene, (image + 0.05).clamp(0.0, 1.0)
+
+
+def edge_inputs(scene, tiling, obs, sigma, edge_cap, tex_plan=None):
+    """The edge pass's inputs as render_scene builds them, on the solid
+    pass of the plain versions; with ``tex_plan``, the textured pass's split
+    and compacted segments → {error_mode: (tables, buffer, z_pad, obs_pad)}
+    for image and error mode."""
+    from deodr_tpu_torch.ops.edge_aa import EdgeAAConfig
+    from deodr_tpu_torch.ops.render import _build_edge_data, prepare
+    from deodr_tpu_torch.ops.tiled import (
+        compact_active_edges, edge_tables, pad_edge_buffers, rasterize_tiled_kernel, split_edges,
+    )
+
+    with torch.no_grad():
+        ij_off, signed_area, draw, background = prepare(scene)
+        image, z_buffer, _ = rasterize_tiled_kernel(scene, ij_off, draw, background, tiling, impl="reference")
+        edges = _build_edge_data(scene, ij_off, signed_area, edge_cap)
+        if tex_plan is not None:
+            edges = split_edges(edges, tex_plan.n_split, None, uv_segment_length=tex_plan.uv_segment_length)
+            edges = compact_active_edges(edges, tex_plan.seg_capacity)
+        out = {}
+        for error_mode in (False, True):
+            cfg = EdgeAAConfig(scene.height, scene.width, sigma, scene.clockwise, error_mode, tex_plan is not None)
+            et = edge_tables(cfg, edges, z_buffer, tiling)
+            buffer = ((image - obs) ** 2).sum(dim=-1) if error_mode else image
+            out[error_mode] = (et, *pad_edge_buffers(cfg, buffer, z_buffer, obs, et.grid))
+    return out
+
+
 def check_raster_kernels(scene, tiling, device, say, gen):
     """The raster kernels against their plain versions on ``scene``'s
     tables; returns their measurements."""
@@ -251,27 +323,18 @@ def check_raster_kernels(scene, tiling, device, say, gen):
 def check_kernels(scene, tiling, obs, device, say):
     """Each kernel of the untextured path against its plain version at the
     bench scene's shapes; returns per-kernel measurements."""
-    from deodr_tpu_torch.ops.edge_aa import EdgeAAConfig
     from deodr_tpu_torch.ops.kernels import edge_kernel as ek
-    from deodr_tpu_torch.ops.render import _build_edge_data, prepare
-    from deodr_tpu_torch.ops.tiled import edge_tables, pad_edge_buffers, rasterize_tiled_kernel
 
     gen = torch.Generator(device="cpu").manual_seed(1)
     out = check_raster_kernels(scene, tiling, device, say, gen)
     with torch.no_grad():
-        ij_off, signed_area, draw, background = prepare(scene)
         esz = scene.ij.element_size()
-        # edge pass inputs: the solid pass's image and z-buffer, the bench's edges
-        image, z_buffer, _ = rasterize_tiled_kernel(scene, ij_off, draw, background, tiling, impl="reference")
-        edges = _build_edge_data(scene, ij_off, signed_area, AA_EDGE_CAPACITY)
+        inputs = edge_inputs(scene, tiling, obs, 1.0, AA_EDGE_CAPACITY)
         for name in ("edge_fwd", "edge_bwd"):
             out[name] = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound=(0.0, "operations"))
         for error_mode in (False, True):
             mode = "error" if error_mode else "image"
-            cfg = EdgeAAConfig(scene.height, scene.width, 1.0, scene.clockwise, error_mode)
-            et = edge_tables(cfg, edges, z_buffer, tiling)
-            buffer = ((image - obs) ** 2).sum(dim=-1) if error_mode else image
-            buf, z_pad, obs_pad = pad_edge_buffers(cfg, buffer, z_buffer, obs, et.grid)
+            et, buf, z_pad, obs_pad = inputs[error_mode]
             args = (et.table_tile, buf, z_pad, obs_pad, et.counts, et.grid, error_mode)
             o_ref = ek.edge_fwd(*args, impl="reference")
             o_k = ek.edge_fwd(*args)
@@ -286,14 +349,18 @@ def check_kernels(scene, tiling, obs, device, say):
             e_r, e_b = rel_err(gr_k, gr_ref), max_err(gb_k, gb_ref)
             say(f"edge_bwd ({mode}): g_table err {e_r:.3g} of scale (limit 1e-3), g_buf0 err {e_b:.3g} (limit 1e-4)")
             check(e_r <= 1e-3 and e_b <= 1e-4, f"edge_bwd ({mode}) outside its tolerance")
+            check_edge_bwd_repeat(ek.edge_bwd, bargs, (gr_k, gb_k), f"edge_bwd ({mode})", say)
             out["edge_fwd"]["max_abs_err"] = max(out["edge_fwd"]["max_abs_err"], e_o)
             out["edge_bwd"]["max_abs_err"] = max(out["edge_bwd"]["max_abs_err"], max_err(gr_k, gr_ref), e_b)
             if not error_mode:  # times and bounds in image mode, the bench's mode
                 e_cap = et.table_tile.shape[1]
                 e_rows = int(et.counts.to(torch.int64).clamp(max=e_cap).sum())
-                e_visits = et.grid.tile_h * et.grid.tile_w * e_rows
+                e_visits = ek.covered_visits(et.table_tile, et.counts, et.grid)
                 w_row, c = et.table_tile.shape[2], buf.shape[0]
                 p_e = et.grid.n_tiles * et.grid.tile_h * et.grid.tile_w
+                say(f"edge tables: {et.grid.n_tiles} tiles of {et.grid.tile_h}x{et.grid.tile_w}, {e_rows} slots in "
+                    f"use; the band-clip planes and y range hold at {e_visits} of the "
+                    f"{e_rows * et.grid.tile_h * et.grid.tile_w} (pixel, slot) pairs (the operations bound's visits)")
                 out["edge_fwd"].update(
                     ms=time_ms(lambda: ek.edge_fwd(*args), 50, device),
                     device_fn=lambda args=args: ek.edge_fwd(*args),
@@ -308,6 +375,11 @@ def check_kernels(scene, tiling, obs, device, say):
                     bound=bound_ms(e_rows * (w_row + 3 + 3 * c) * esz + p_e * esz * (3 * c + 1),
                                    e_visits * OPS_PER_VISIT["edge_bwd"]),
                 )
+                # the kept bound writes the used rows only; the kernel also writes the zero rows up to cap
+                full = bound_ms(e_rows * w_row * esz + et.grid.n_tiles * e_cap * (3 + 3 * c) * esz
+                                + p_e * esz * (3 * c + 1), e_visits * OPS_PER_VISIT["edge_bwd"])[0]
+                say(f"edge_bwd bound {out['edge_bwd']['bound'][0]:.5f} ms with the {e_rows} used rows written, "
+                    f"{full:.5f} ms with all {et.grid.n_tiles} x {e_cap} rows written")
     return out
 
 
@@ -444,33 +516,21 @@ def check_tex_kernels(scene, obs, device, say, plan=None):
     ``plan`` = (aa_edge_capacity, tiling, aa_tex_plan), by default the
     constants of ``deodr_tpu_torch.duck_scene``."""
     from deodr_tpu_torch import duck_scene as ds
-    from deodr_tpu_torch.ops.edge_aa import EdgeAAConfig
+    from deodr_tpu_torch.ops.kernels import edge_kernel as ek
     from deodr_tpu_torch.ops.kernels import edge_tex_kernel as etk
-    from deodr_tpu_torch.ops.render import _build_edge_data, prepare
-    from deodr_tpu_torch.ops.tiled import (
-        compact_active_edges, edge_tables, pad_edge_buffers, rasterize_tiled_kernel, split_edges,
-    )
 
     gen = torch.Generator(device="cpu").manual_seed(4)
     edge_cap, tiling, plan = plan or (ds.DUCK_AA_EDGE_CAPACITY, ds.DUCK_TILING, ds.DUCK_TEX_PLAN)
     out = check_raster_kernels(scene, tiling, device, say, gen)
     texture = scene.texture
     with torch.no_grad():
-        ij_off, signed_area, draw, background = prepare(scene)
         esz = scene.ij.element_size()
-        image, z_buffer, _ = rasterize_tiled_kernel(scene, ij_off, draw, background, tiling, impl="reference")
-        edges = _build_edge_data(scene, ij_off, signed_area, edge_cap)
-        edges = compact_active_edges(
-            split_edges(edges, plan.n_split, None, uv_segment_length=plan.uv_segment_length), plan.seg_capacity
-        )
+        inputs = edge_inputs(scene, tiling, obs, ds.DUCK_SIGMA, edge_cap, plan)
         for name in ("edge_tex_fwd", "edge_tex_bwd"):
             out[name] = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound=(0.0, "operations"))
         for error_mode in (False, True):
             mode = "error" if error_mode else "image"
-            cfg = EdgeAAConfig(scene.height, scene.width, ds.DUCK_SIGMA, scene.clockwise, error_mode, True)
-            et = edge_tables(cfg, edges, z_buffer, tiling)
-            buffer = ((image - obs) ** 2).sum(dim=-1) if error_mode else image
-            buf, z_pad, obs_pad = pad_edge_buffers(cfg, buffer, z_buffer, obs, et.grid)
+            et, buf, z_pad, obs_pad = inputs[error_mode]
             args = (et.table_tile, texture, buf, z_pad, obs_pad, et.counts, et.grid, error_mode)
             o_ref = etk.edge_tex_fwd(*args, impl="reference")
             o_k = etk.edge_tex_fwd(*args)
@@ -489,6 +549,7 @@ def check_tex_kernels(scene, obs, device, say, plan=None):
             check(e_r <= 1e-3 and e_b <= 1e-4 and e_t <= 1e-3, f"edge_tex_bwd ({mode}) outside its tolerance")
             check(float(gt_k.abs().max()) > 0 and float(gr_k[..., -9:].abs().max()) > 0,
                   f"edge_tex_bwd ({mode}): no gradient reached the texture or the uv/shade rows")
+            check_edge_bwd_repeat(etk.edge_tex_bwd, bargs, (gr_k, gb_k), f"edge_tex_bwd ({mode})", say)
             out["edge_tex_fwd"]["max_abs_err"] = max(out["edge_tex_fwd"]["max_abs_err"], e_o)
             out["edge_tex_bwd"]["max_abs_err"] = max(
                 out["edge_tex_bwd"]["max_abs_err"], max_err(gr_k, gr_ref), e_b, max_err(gt_k, gt_ref)
@@ -496,7 +557,7 @@ def check_tex_kernels(scene, obs, device, say, plan=None):
             if not error_mode:  # times and bounds in image mode, the duck loss's mode
                 e_cap = et.table_tile.shape[1]
                 e_rows = int(et.counts.to(torch.int64).clamp(max=e_cap).sum())
-                e_visits = et.grid.tile_h * et.grid.tile_w * e_rows
+                e_visits = ek.covered_visits(et.table_tile, et.counts, et.grid)
                 w_row, c = et.table_tile.shape[2], buf.shape[0]
                 p_e = et.grid.n_tiles * et.grid.tile_h * et.grid.tile_w
                 # texels: 4 taps x C only where a textured slot paints (counted from this run's tables);
@@ -504,8 +565,10 @@ def check_tex_kernels(scene, obs, device, say, plan=None):
                 tex_visits = etk.textured_visits(et.table_tile, z_pad, et.counts, et.grid)
                 tap_bytes = tex_visits * 4 * c * esz
                 say(f"edge_tex tables: {et.grid.n_tiles} tiles of {et.grid.tile_h}x{et.grid.tile_w}, {e_rows} slots "
-                    f"in use (capacity {e_cap}, fullest tile {int(et.counts.max())}), row width {w_row}; textured "
-                    f"slots paint {tex_visits} (pixel, slot) pairs, {tap_bytes} bytes of taps")
+                    f"in use (capacity {e_cap}, fullest tile {int(et.counts.max())}), row width {w_row}; the band-clip "
+                    f"planes and y range hold at {e_visits} of the {e_rows * et.grid.tile_h * et.grid.tile_w} (pixel, "
+                    f"slot) pairs (the operations bound's visits); textured slots paint {tex_visits} pairs, "
+                    f"{tap_bytes} bytes of taps")
                 out["edge_tex_fwd"].update(
                     ms=time_ms(lambda: etk.edge_tex_fwd(*args), 50, device),
                     device_fn=lambda args=args: etk.edge_tex_fwd(*args),
@@ -521,6 +584,11 @@ def check_tex_kernels(scene, obs, device, say, plan=None):
                                    + texture.numel() * esz,
                                    e_visits * OPS_PER_VISIT["edge_tex_bwd"]),
                 )
+                full = bound_ms(e_rows * w_row * esz + et.grid.n_tiles * e_cap * (12 + 3 * c) * esz
+                                + p_e * esz * (3 * c + 1) + 2 * tap_bytes + texture.numel() * esz,
+                                e_visits * OPS_PER_VISIT["edge_tex_bwd"])[0]
+                say(f"edge_tex_bwd bound {out['edge_tex_bwd']['bound'][0]:.5f} ms with the {e_rows} used rows "
+                    f"written, {full:.5f} ms with all {et.grid.n_tiles} x {e_cap} rows written")
     return out
 
 
@@ -585,21 +653,15 @@ def run_duck(device, say):
     """Phase 4; returns (per-kernel measurements, launches on the duck's
     main path, median step ms)."""
     from deodr_tpu_torch import duck_scene as ds
-    from deodr_tpu_torch import render_scene, scene_buffers_from_numpy
     from deodr_tpu_torch.ops import kernels
 
     t0 = time.perf_counter()
-    fields = ds.duck_scene_fields()
+    fields, scene, obs = duck_setup(device)
     height, width = fields["height"], fields["width"]
-    scene = scene_buffers_from_numpy(fields, device=device, dtype=torch.float32)
     say(f"duck scene: {fields['faces'].shape[0]} faces, {fields['ij'].shape[0]} vertices, {fields['uv'].shape[0]} uv "
         f"vertices, texture {tuple(fields['texture'].shape)}, {width}x{height}, {int(fields['edgeflags'].sum())} "
         f"silhouette edges, built in {time.perf_counter() - t0:.1f} s")
     say(f"duck plan: aa_edge_capacity={ds.DUCK_AA_EDGE_CAPACITY}, {ds.DUCK_TILING}, {ds.DUCK_TEX_PLAN}")
-    with torch.no_grad():
-        image, _, _ = render_scene(scene, ds.DUCK_SIGMA, aa_edge_capacity=ds.DUCK_AA_EDGE_CAPACITY,
-                                   tiling=ds.DUCK_TILING, aa_tex_plan=ds.DUCK_TEX_PLAN)
-    obs = (image + 0.05).clamp(0.0, 1.0)
 
     measured = check_tex_kernels(scene, obs, device, say)
 
@@ -848,8 +910,6 @@ def run(device="cuda", height=512, width=512, n_tri=200, smi_line=None):
     """All phases; raises on any miss. Returns the kernels record and the
     step times. A smaller bench scene only serves a rehearsal on the CPU;
     the duck always runs at its full size, which its plan is made for."""
-    from deodr_tpu_torch import scene_buffers_from_numpy, suggest_tiling
-    from deodr_tpu_torch.bench_scene import bench_scene_fields
     from deodr_tpu_torch.ops import kernels
 
     device = torch.device(device)
@@ -873,12 +933,8 @@ def run(device="cuda", height=512, width=512, n_tri=200, smi_line=None):
         say(f"build: {path.name} in {time.perf_counter() - t0:.1f} s")
 
     # 3. the untextured path on the bench scene
-    fields = bench_scene_fields(height, width, n_tri)
-    scene = scene_buffers_from_numpy(fields, device=device, dtype=torch.float32)
-    tiling = suggest_tiling(fields["ij"], fields["faces"], height, width, sigma=1.0,
-                            edgeflags=fields["edgeflags"], margin=1.0, for_pallas=True, bucket_mode="exact")
+    _, scene, tiling, obs = bench_setup(device, height, width, n_tri)
     say(f"tiling: {tiling}")
-    obs = torch.from_numpy(np.random.RandomState(3).rand(height, width, 3).astype(np.float32)).to(device)
 
     measured = {"bench": check_kernels(scene, tiling, obs, device, say)}
 
@@ -917,15 +973,15 @@ def run(device="cuda", height=512, width=512, n_tri=200, smi_line=None):
     def device_time(m, f):
         return times.get((id(m), f), (None, None))[0]
 
-    # a redesigned wrapper launches one device kernel per call: no memset beside it
+    # a redesigned wrapper launches its kernel and nothing else (edge_tex_bwd: and g_texture's zero-fill)
     for path_name, per_kernel in measured.items():
-        for name in ("raster_bwd", "quad_blend_bwd"):
+        for name, expected in (("raster_bwd", 1), ("quad_blend_bwd", 1), ("edge_bwd", 1), ("edge_tex_bwd", 2)):
             if name in per_kernel:
                 n_ops = times[(id(per_kernel[name]), "device_fn")][1]
                 say(f"{name} on {path_name}: {'not measured' if n_ops is None else f'{n_ops:g}'} device operations "
-                    "per wrapper call (expected 1)")
-                check(device.type != "cuda" or n_ops == 1,
-                      f"{name} is not one device operation per wrapper call on {path_name}")
+                    f"per wrapper call (expected {expected})")
+                check(device.type != "cuda" or n_ops == expected,
+                      f"{name} is not {expected} device operation(s) per wrapper call on {path_name}")
 
     def library_device_ms(m):
         t = device_time(m, "library_device_fn")

@@ -33,18 +33,35 @@
 // atomic contention where many band pixels share a texel (magnified
 // textures).
 //
-// What this first design does. The frame of edge_kernel.cu: one thread per
-// pixel, blocks of 256 pixels of one tile, rows staged in shared memory 32
-// at a time, the C colour planes (or the one residual plane) in registers.
-// A slot's textured flag is uniform over the block, so the colour branch
-// does not diverge. The backward reduces four moments rows for a textured
-// slot (t, u, v, shade) and 1 + C for a plain one into the slot's gradient
-// row [g_t 3 | g_a 3C | g_uc 3 | g_vc 3 | g_lc 3]; the caller zero-fills
-// the table, so the columns a slot does not own stay 0. Tap indices are
-// computed for masked pixels only and clamped with fmin/fmax, which drop a
-// NaN, so no index can leave the texture whatever an inactive row carries.
-// Compiled with -fmad=false: u, v and the shade plane round as in the
-// plain PyTorch version, so both read the same texels.
+// The forward (first design). The frame of edge_kernel.cu's forward: one
+// thread per pixel, blocks of 256 pixels of one tile, rows staged in shared
+// memory 32 at a time, the C colour planes (or the one residual plane) in
+// registers. A slot's textured flag is uniform over the block, so the
+// colour branch does not diverge.
+//
+// The backward. It runs edge_bwd_frame (common.cuh), as edge_kernel.cu's
+// backward does (one cluster per tile writing whole rows, 16 × 2 patches a
+// warp, 64-row chunks culled a region at a time, one butterfly per warp and
+// slot). At one pixel a lane it splits each slot in two: load_slot (band test
+// and, inside the band, the footprint, shade and 4·C texel loads) for the
+// next slot the warp walks is issued before apply_slot (the un-blend, the
+// texel atomics and the moments) of the current one, so the dependent texel
+// loads' latency overlaps the carried chain. A plain slot owns the moment
+// columns of t and its colour planes, a textured slot those of t, u, v and
+// the shade, in its row [g_t 3 | g_a 3C | g_uc 3 | g_vc 3 | g_lc 3]; the
+// columns a slot does not own, and rows ≥ count, are written 0. g_tex keeps
+// its atomics (the caller zero-fills it): the order of a texel's adds may
+// change its last bit from call to call, g_rows does not change. Measured
+// (chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W) it takes 0.037 ms on
+// the duck against the first design's 0.041: its 300 tiles take 4 blocks
+// each, about two waves of blocks whose latency chain (count, rows, walk,
+// cluster barrier, remote reads) costs microseconds even on the 177 empty and
+// the many light tiles, and the fullest tiles (65 and 68 slots) cross a
+// 64-row chunk. Tap indices are computed for masked pixels only and clamped
+// with fmin/fmax, which drop a NaN, so no index can leave the texture
+// whatever an inactive row carries. Compiled with -fmad=false: u, v and the
+// shade plane round as in the plain PyTorch version, so both read the same
+// texels.
 
 #include "common.cuh"
 
@@ -138,119 +155,170 @@ __global__ void __launch_bounds__(kThreads)
   for (int ch = 0; ch < NCH; ++ch) buf_out[ch * plane + px.offset] = buf[ch];
 }
 
+// The half of one backward slot at one pixel that does not depend on the
+// carried buffer: the band test and, inside the band, a plain slot's colour
+// planes or a textured slot's shade, footprint and 4·C texels. The kernel
+// loads slot k − 1's while slot k un-blends, so that the texel loads'
+// latency overlaps that work instead of lengthening the serial chain.
+template <typename T, int C>
+struct SlotInputs {
+  bool mask;
+  T t;
+  T a[C];  // plain slot: band colour
+  T lum;   // textured slot: shade, footprint, taps t00, t10, t01, t11
+  Footprint<T> f;
+  T tap[4][C];
+};
+
+// `may`: the lane's pixel is inside the tile (its warp's region passed
+// band_may_cover); else the slot does not paint it.
+template <typename T, int C>
+__device__ __forceinline__ void load_slot(const T* r, bool textured, bool may, T x, T y, T zb,
+                                          const T* __restrict__ tex, int tex_h, int tex_w, SlotInputs<T, C>& s) {
+  constexpr int W0 = 25 + 3 * C;
+  s.mask = may && band_mask<T, C>(r, x, y, zb, s.t);
+  if (!s.mask) return;
+  if (textured) {
+    const T u = plane3(r + W0 + kTexU, x, y);
+    const T v = plane3(r + W0 + kTexV, x, y);
+    s.lum = plane3(r + W0 + kTexL, x, y);
+    s.f = footprint_of(u, v, tex_h, tex_w);
+    const T* t00 = tex + (size_t)s.f.i00 * C;
+    const T* t01 = t00 + (size_t)tex_w * C;
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) {
+      s.tap[0][ch] = __ldg(t00 + ch);
+      s.tap[1][ch] = __ldg(t00 + C + ch);
+      s.tap[2][ch] = __ldg(t01 + ch);
+      s.tap[3][ch] = __ldg(t01 + C + ch);
+    }
+  } else {
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) s.a[ch] = plane3(r + 21 + 3 * ch, x, y);
+  }
+}
+
+// The carried half, at a masked pixel: un-blends the pixel's buffer and
+// cotangent by the slot, adds the moments of the slot's gradient quantities
+// to v (t, then the C colour planes of a plain slot, or u, v and the shade
+// of a textured one) and a textured slot's texel gradients to g_tex.
 template <typename T, int C, bool kErr>
+__device__ __forceinline__ void apply_slot(const SlotInputs<T, C>& s, bool textured, const T* ob, T x, T y, int tex_w,
+                                           T* buf, T* gb, T* __restrict__ g_tex, T (&v)[kMoments]) {
+  T g_a[C];
+  if (!textured) {
+    const T g_t = unblend<T, C, kErr>(s.a, ob, s.t, buf, gb, g_a);
+    add_moments(v, g_t, x, y);
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) add_moments(v + 3 + 3 * ch, g_a[ch], x, y);
+    return;
+  }
+  const T one_eu = (T)1 - s.f.eu, one_ev = (T)1 - s.f.ev;
+  T a[C], sample[C], d_u[C], d_v[C];
+#pragma unroll
+  for (int ch = 0; ch < C; ++ch) {
+    const T t00 = s.tap[0][ch], t10 = s.tap[1][ch], t01 = s.tap[2][ch], t11 = s.tap[3][ch];
+    const T top = one_eu * t00 + s.f.eu * t10;
+    const T bot = one_eu * t01 + s.f.eu * t11;
+    sample[ch] = top * one_ev + bot * s.f.ev;
+    d_u[ch] = (t10 - t00) * one_ev + (t11 - t01) * s.f.ev;
+    d_v[ch] = bot - top;
+    a[ch] = sample[ch] * s.lum;
+  }
+  const T g_t = unblend<T, C, kErr>(a, ob, s.t, buf, gb, g_a);
+  const size_t o00 = (size_t)s.f.i00 * C, o01 = o00 + (size_t)tex_w * C;
+  T g_u = (T)0, g_v = (T)0, g_lum = (T)0;
+#pragma unroll
+  for (int ch = 0; ch < C; ++ch) {
+    g_lum = g_lum + g_a[ch] * sample[ch];
+    const T g_s = g_a[ch] * s.lum;
+    g_u = g_u + g_s * d_u[ch];
+    g_v = g_v + g_s * d_v[ch];
+    atomicAdd(&g_tex[o00 + ch], g_s * (one_eu * one_ev));
+    atomicAdd(&g_tex[o00 + C + ch], g_s * (s.f.eu * one_ev));
+    atomicAdd(&g_tex[o01 + ch], g_s * (one_eu * s.f.ev));
+    atomicAdd(&g_tex[o01 + C + ch], g_s * (s.f.eu * s.f.ev));
+  }
+  if (!s.f.gate_u) g_u = (T)0;
+  if (!s.f.gate_v) g_v = (T)0;
+  add_moments(v, g_t, x, y);
+  add_moments(v + 3, g_u, x, y);
+  add_moments(v + 6, g_v, x, y);
+  add_moments(v + 9, g_lum, x, y);
+}
+
+// Pixels a lane of the backward kernel holds at most. One pixel a lane
+// walks with the next slot's inputs loaded ahead; a tile taller than 8
+// blocks cover that way takes up to 3 a lane (edge_bwd_launch_shape picks
+// how many), walked one after the other: on the duck's 48-row textured
+// tiles that is 0.101 ms against 0.143 at one pixel a lane in 3 passes
+// (loading a slot for all 3 pixels first took 22 more registers and no
+// less time; NVIDIA H100 80GB HBM3, 700 W, tools/edge_bwd_scan.py).
+constexpr int kTexBwdPixels = 3;
+
+template <typename T, int C, bool kErr, int P>
 __global__ void __launch_bounds__(kThreads)
     edge_tex_bwd_kernel(const T* __restrict__ table, const int* __restrict__ counts, const T* __restrict__ zbuf,
                         const T* __restrict__ obs, const T* __restrict__ tex, const T* __restrict__ buf_final,
                         const T* __restrict__ g_out, int n_tx, int tile_h, int tile_w, int cap, int tex_h, int tex_w,
-                        T* __restrict__ g_rows, T* __restrict__ g_buf0, T* __restrict__ g_tex) {
+                        int pixels, T* __restrict__ g_rows, T* __restrict__ g_buf0, T* __restrict__ g_tex) {
   constexpr int W0 = 25 + 3 * C;
   constexpr int W = W0 + kTexExtra;
   constexpr int GW = 12 + 3 * C;
   constexpr int GUV = 3 + 3 * C;  // first of the g_uc | g_vc | g_lc columns
-  constexpr int NCH = kErr ? 1 : C;
-  __shared__ T rows[kEdgeChunk * W];
-  __shared__ T acc[kEdgeChunk * GW];
-  const int tile = blockIdx.x;
-  const Pixel px = pixel_of(tile, n_tx, tile_h, tile_w);
-  const size_t plane = (size_t)gridDim.x * tile_h * tile_w;
-  const T x = (T)px.x, y = (T)px.y;
-  const int count = min(counts[tile], cap);
-
-  T buf[NCH], gb[NCH], ob[C];
-  T zb = (T)0;
+  using Px = BwdPixels<T, C, kErr, P>;
+  // painter's order, reversed, over the slots whose band may cover the region
+  auto walk = [=](const T* rows, unsigned long long cover, Px& px, T* warp_acc) {
+    if constexpr (P == 1) {  // the next slot's inputs loaded while the current one un-blends
+      auto load = [&](int k, bool& textured, SlotInputs<T, C>& s) {
+        const T* r = rows + k * W;
+        textured = r[W0 + kTexFlag] > (T)0.5;  // uniform over the block
+        load_slot(r, textured, px.in(0), px.x[0], px.y[0], px.zb[0], tex, tex_h, tex_w, s);
+      };
+      SlotInputs<T, C> cur, next;
+      bool cur_tex = false, next_tex = false;
+      int k = pop_highest(cover);
+      if (k >= 0) load(k, cur_tex, cur);
+      while (k >= 0) {
+        const int k_next = pop_highest(cover);
+        if (k_next >= 0) load(k_next, next_tex, next);
+        T v[kMoments];
 #pragma unroll
-  for (int ch = 0; ch < NCH; ++ch) {
-    buf[ch] = px.inside ? buf_final[ch * plane + px.offset] : (T)0;
-    gb[ch] = px.inside ? g_out[ch * plane + px.offset] : (T)0;
-  }
+        for (int i = 0; i < kMoments; ++i) v[i] = (T)0;
+        if (cur.mask)
+          apply_slot<T, C, kErr>(cur, cur_tex, px.ob[0], px.x[0], px.y[0], tex_w, px.buf[0], px.gb[0], g_tex, v);
+        store_warp_moments(warp_acc, k, cur.mask, v);
+        cur = next;
+        cur_tex = next_tex;
+        k = k_next;
+      }
+    } else {  // the lane's pixels one after the other
+      for (int k = pop_highest(cover); k >= 0; k = pop_highest(cover)) {
+        const T* r = rows + k * W;
+        const bool textured = r[W0 + kTexFlag] > (T)0.5;
+        T v[kMoments];
 #pragma unroll
-  for (int ch = 0; ch < C; ++ch) ob[ch] = (kErr && px.inside) ? obs[ch * plane + px.offset] : (T)0;
-  if (px.inside) zb = zbuf[px.offset];
-
-  const T* tile_rows = table + (size_t)tile * cap * W;
-  T* tile_grads = g_rows + (size_t)tile * cap * GW;
-  for (int hi = count; hi > 0; hi -= kEdgeChunk) {
-    const int lo = max(0, hi - kEdgeChunk);
-    const int n = hi - lo;
-    __syncthreads();
-    for (int i = threadIdx.x; i < n * W; i += blockDim.x) rows[i] = tile_rows[(size_t)lo * W + i];
-    for (int i = threadIdx.x; i < n * GW; i += blockDim.x) acc[i] = (T)0;
-    __syncthreads();
-    for (int k = n - 1; k >= 0; --k) {
-      const T* r = rows + k * W;
-      T t = (T)0.5;
-      const bool mask = px.inside && band_mask<T, C>(r, x, y, zb, t);
-      const bool any = __any_sync(kFullMask, mask);
-      T g_t = (T)0;
-      T g_a[C];
+        for (int i = 0; i < kMoments; ++i) v[i] = (T)0;
+        bool any = false;
 #pragma unroll
-      for (int ch = 0; ch < C; ++ch) g_a[ch] = (T)0;
-      if (r[W0 + kTexFlag] > (T)0.5) {  // textured slot (uniform over the block)
-        T g_u = (T)0, g_v = (T)0, g_lum = (T)0;
-        if (mask) {
-          const T u = plane3(r + W0 + kTexU, x, y);
-          const T v = plane3(r + W0 + kTexV, x, y);
-          const T lum = plane3(r + W0 + kTexL, x, y);
-          const Footprint<T> f = footprint_of(u, v, tex_h, tex_w);
-          const size_t o00 = (size_t)f.i00 * C, o01 = o00 + (size_t)tex_w * C;
-          const T one_eu = (T)1 - f.eu, one_ev = (T)1 - f.ev;
-          T a[C], sample[C], d_u[C], d_v[C];
-#pragma unroll
-          for (int ch = 0; ch < C; ++ch) {
-            const T t00 = tex[o00 + ch], t10 = tex[o00 + C + ch];
-            const T t01 = tex[o01 + ch], t11 = tex[o01 + C + ch];
-            const T top = one_eu * t00 + f.eu * t10;
-            const T bot = one_eu * t01 + f.eu * t11;
-            sample[ch] = top * one_ev + bot * f.ev;
-            d_u[ch] = (t10 - t00) * one_ev + (t11 - t01) * f.ev;
-            d_v[ch] = bot - top;
-            a[ch] = sample[ch] * lum;
-          }
-          g_t = unblend<T, C, kErr>(a, ob, t, buf, gb, g_a);
-#pragma unroll
-          for (int ch = 0; ch < C; ++ch) {
-            g_lum = g_lum + g_a[ch] * sample[ch];
-            const T g_s = g_a[ch] * lum;
-            g_u = g_u + g_s * d_u[ch];
-            g_v = g_v + g_s * d_v[ch];
-            atomicAdd(&g_tex[o00 + ch], g_s * (one_eu * one_ev));
-            atomicAdd(&g_tex[o00 + C + ch], g_s * (f.eu * one_ev));
-            atomicAdd(&g_tex[o01 + ch], g_s * (one_eu * f.ev));
-            atomicAdd(&g_tex[o01 + C + ch], g_s * (f.eu * f.ev));
-          }
-          if (!f.gate_u) g_u = (T)0;
-          if (!f.gate_v) g_v = (T)0;
+        for (int j = 0; j < P; ++j) {
+          SlotInputs<T, C> s;
+          load_slot(r, textured, px.in(j), px.x[j], px.y[j], px.zb[j], tex, tex_h, tex_w, s);
+          if (!s.mask) continue;
+          any = true;
+          apply_slot<T, C, kErr>(s, textured, px.ob[j], px.x[j], px.y[j], tex_w, px.buf[j], px.gb[j], g_tex, v);
         }
-        if (any) {
-          add_moments(&acc[k * GW], g_t, x, y);
-          add_moments(&acc[k * GW + GUV], g_u, x, y);
-          add_moments(&acc[k * GW + GUV + 3], g_v, x, y);
-          add_moments(&acc[k * GW + GUV + 6], g_lum, x, y);
-        }
-      } else {
-        if (mask) {
-          T a[C];
-#pragma unroll
-          for (int ch = 0; ch < C; ++ch) a[ch] = plane3(r + 21 + 3 * ch, x, y);
-          g_t = unblend<T, C, kErr>(a, ob, t, buf, gb, g_a);
-        }
-        if (any) {
-          add_moments(&acc[k * GW], g_t, x, y);
-#pragma unroll
-          for (int ch = 0; ch < C; ++ch) add_moments(&acc[k * GW + 3 + 3 * ch], g_a[ch], x, y);
-        }
+        store_warp_moments(warp_acc, k, any, v);
       }
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < n * GW; i += blockDim.x) {
-      const T v = acc[i];
-      if (v != (T)0) atomicAdd(&tile_grads[(size_t)lo * GW + i], v);
-    }
-  }
-  if (!px.inside) return;
-#pragma unroll
-  for (int ch = 0; ch < NCH; ++ch) g_buf0[ch * plane + px.offset] = gb[ch];
+  };
+  // moment column of gradient column col: a plain slot owns t and the colour planes, a textured one t, u, v, shade
+  auto column_of = [](const T* row, int col) {
+    if (row[W0 + kTexFlag] > (T)0.5) return col < 3 ? col : (col >= GUV ? col - GUV + 3 : -1);
+    return col < GUV ? col : -1;
+  };
+  edge_bwd_frame<T, C, kErr, P, W, GW>(table, counts, zbuf, obs, buf_final, g_out, n_tx, tile_h, tile_w, cap, pixels,
+                                       g_rows, g_buf0, walk, column_of);
 }
 
 template <typename T>
@@ -267,16 +335,23 @@ static void tex_fwd_launch(dim3 grid, cudaStream_t s, const TexArgs<T>& a, const
 }
 
 template <typename T, int C, bool kErr>
-static void tex_bwd_launch(dim3 grid, cudaStream_t s, const TexArgs<T>& a, const T* buf_final, const T* g_out,
-                           T* g_rows, T* g_buf0, T* g_tex) {
-  edge_tex_bwd_kernel<T, C, kErr><<<grid, kThreads, 0, s>>>(a.table, a.counts, a.zbuf, a.obs, a.tex, buf_final, g_out,
-                                                             a.n_tx, a.tile_h, a.tile_w, a.cap, a.tex_h, a.tex_w,
-                                                             g_rows, g_buf0, g_tex);
+static cudaError_t tex_bwd_launch(int n_tiles, int threads, int blocks_per_tile, int pixels, size_t smem_bytes,
+                                  cudaStream_t s, const TexArgs<T>& a, const T* buf_final, const T* g_out, T* g_rows,
+                                  T* g_buf0, T* g_tex) {
+  if (pixels < 1 || pixels > kTexBwdPixels) return cudaErrorInvalidValue;
+  if (smem_bytes != edge_bwd_smem_elems(35 + 3 * C, 12 + 3 * C, threads / 32) * sizeof(T))
+    return cudaErrorInvalidValue;
+  auto go = [&](auto kernel) {
+    return launch_tile_clusters(kernel, n_tiles, threads, blocks_per_tile, smem_bytes, s, a.table, a.counts, a.zbuf,
+                                a.obs, a.tex, buf_final, g_out, a.n_tx, a.tile_h, a.tile_w, a.cap, a.tex_h, a.tex_w,
+                                pixels, g_rows, g_buf0, g_tex);
+  };
+  return pixels == 1 ? go(edge_tex_bwd_kernel<T, C, kErr, 1>) : go(edge_tex_bwd_kernel<T, C, kErr, kTexBwdPixels>);
 }
 
 // Calls f.template operator()<C, kErr>() for the run-time (c, err).
 template <typename F>
-static bool dispatch_c_err(int c, bool err, F f) {
+static bool dispatch_c_err(int c, bool err, const F& f) {
   switch (c) {
     case 1: err ? f.template operator()<1, true>() : f.template operator()<1, false>(); return true;
     case 2: err ? f.template operator()<2, true>() : f.template operator()<2, false>(); return true;
@@ -301,14 +376,17 @@ struct TexFwdCall {
 
 template <typename T>
 struct TexBwdCall {
-  dim3 grid;
+  int n_tiles, threads, blocks_per_tile, pixels;
+  size_t smem_bytes;
   cudaStream_t s;
   TexArgs<T> a;
   const T *buf_final, *g_out;
   T *g_rows, *g_buf0, *g_tex;
+  mutable cudaError_t result;
   template <int C, bool kErr>
   void operator()() const {
-    tex_bwd_launch<T, C, kErr>(grid, s, a, buf_final, g_out, g_rows, g_buf0, g_tex);
+    result = tex_bwd_launch<T, C, kErr>(n_tiles, threads, blocks_per_tile, pixels, smem_bytes, s, a, buf_final,
+                                        g_out, g_rows, g_buf0, g_tex);
   }
 };
 
@@ -333,13 +411,17 @@ static int edge_tex_fwd_launch(const void* table, const void* counts, const void
 template <typename T>
 static int edge_tex_bwd_launch(const void* table, const void* counts, const void* zbuf, const void* obs,
                                const void* tex, const void* buf_final, const void* g_out, int n_tiles, int n_tx,
-                               int tile_h, int tile_w, int cap, int c, int err, int tex_h, int tex_w, void* g_rows,
-                               void* g_buf0, void* g_tex, void* stream) {
-  const int n_px = tile_h * tile_w;
-  if (n_tiles == 0 || n_px == 0) return 0;
+                               int tile_h, int tile_w, int cap, int c, int err, int tex_h, int tex_w, int threads,
+                               int blocks_per_tile, int pixels, int smem_bytes, void* g_rows, void* g_buf0,
+                               void* g_tex, void* stream) {
+  if (n_tiles == 0) return 0;  // a tile without pixels still gets its zero rows
   if (tex_h < 2 || tex_w < 2) return (int)cudaErrorInvalidValue;
   TexBwdCall<T> call;
-  call.grid = dim3(n_tiles, (n_px + kThreads - 1) / kThreads);
+  call.n_tiles = n_tiles;
+  call.threads = threads;
+  call.blocks_per_tile = blocks_per_tile;
+  call.pixels = pixels;
+  call.smem_bytes = (size_t)smem_bytes;
   call.s = (cudaStream_t)stream;
   call.a = TexArgs<T>{(const T*)table, (const T*)zbuf, (const T*)obs, (const T*)tex, (const int*)counts,
                       n_tx, tile_h, tile_w, cap, tex_h, tex_w};
@@ -348,8 +430,9 @@ static int edge_tex_bwd_launch(const void* table, const void* counts, const void
   call.g_rows = (T*)g_rows;
   call.g_buf0 = (T*)g_buf0;
   call.g_tex = (T*)g_tex;
+  call.result = cudaErrorInvalidValue;
   if (!dispatch_c_err(c, err != 0, call)) return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return (int)call.result;
 }
 
 }  // namespace deodr
@@ -372,16 +455,20 @@ int edge_tex_fwd_f64(const void* table, const void* counts, const void* zbuf, co
 
 int edge_tex_bwd_f32(const void* table, const void* counts, const void* zbuf, const void* obs, const void* tex,
                      const void* buf_final, const void* g_out, int n_tiles, int n_tx, int tile_h, int tile_w, int cap,
-                     int c, int err, int tex_h, int tex_w, void* g_rows, void* g_buf0, void* g_tex, void* stream) {
+                     int c, int err, int tex_h, int tex_w, int threads, int blocks_per_tile, int pixels,
+                     int smem_bytes, void* g_rows, void* g_buf0, void* g_tex, void* stream) {
   return deodr::edge_tex_bwd_launch<float>(table, counts, zbuf, obs, tex, buf_final, g_out, n_tiles, n_tx, tile_h,
-                                           tile_w, cap, c, err, tex_h, tex_w, g_rows, g_buf0, g_tex, stream);
+                                           tile_w, cap, c, err, tex_h, tex_w, threads, blocks_per_tile, pixels,
+                                           smem_bytes, g_rows, g_buf0, g_tex, stream);
 }
 
 int edge_tex_bwd_f64(const void* table, const void* counts, const void* zbuf, const void* obs, const void* tex,
                      const void* buf_final, const void* g_out, int n_tiles, int n_tx, int tile_h, int tile_w, int cap,
-                     int c, int err, int tex_h, int tex_w, void* g_rows, void* g_buf0, void* g_tex, void* stream) {
+                     int c, int err, int tex_h, int tex_w, int threads, int blocks_per_tile, int pixels,
+                     int smem_bytes, void* g_rows, void* g_buf0, void* g_tex, void* stream) {
   return deodr::edge_tex_bwd_launch<double>(table, counts, zbuf, obs, tex, buf_final, g_out, n_tiles, n_tx, tile_h,
-                                            tile_w, cap, c, err, tex_h, tex_w, g_rows, g_buf0, g_tex, stream);
+                                            tile_w, cap, c, err, tex_h, tex_w, threads, blocks_per_tile, pixels,
+                                            smem_bytes, g_rows, g_buf0, g_tex, stream);
 }
 
 }  // extern "C"

@@ -225,27 +225,10 @@ static int raster_bwd_launch(const void* slot_map, const void* g_vals, const voi
                              int tile_h, int tile_w, int cap, int d, int threads, int blocks_per_tile,
                              void* g_table, void* stream) {
   if (n_tiles == 0 || cap == 0) return 0;  // an empty table; a tile without pixels still gets its zero rows
-  if (threads % 32 || threads > kThreads || blocks_per_tile < 1 || blocks_per_tile > 8)
-    return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)cap * 3 * d * sizeof(T);
-  const cudaError_t err = reserve_smem(raster_bwd_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = blocks_per_tile;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_tiles * blocks_per_tile);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t launched = cudaLaunchKernelEx(&cfg, raster_bwd_kernel<T>, (const int*)slot_map, (const T*)g_vals,
-                                                  (const int*)counts, n_tx, tile_h, tile_w, cap, d, (T*)g_table);
-  if (launched != cudaSuccess) return (int)launched;
-  return (int)cudaGetLastError();
+  return (int)launch_tile_clusters(raster_bwd_kernel<T>, n_tiles, threads, blocks_per_tile, smem,
+                                   (cudaStream_t)stream, (const int*)slot_map, (const T*)g_vals, (const int*)counts,
+                                   n_tx, tile_h, tile_w, cap, d, (T*)g_table);
 }
 
 }  // namespace deodr

@@ -57,14 +57,14 @@ _SIGNATURES = {
     # table, counts, zbuf, obs, buf_in, n_tiles, n_tx, tile_h, tile_w, cap, C, err, buf_out, stream
     "edge_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     # table, counts, zbuf, obs, buf_final, g_out, n_tiles, n_tx, tile_h, tile_w, cap, C, err,
-    # g_table, g_buf0, stream
-    "edge_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    # threads, blocks_per_tile, pixels, smem_bytes, g_table, g_buf0, stream
+    "edge_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     # table, counts, zbuf, obs, texture, buf_in, n_tiles, n_tx, tile_h, tile_w, cap, C, err, tex_h, tex_w,
     # buf_out, stream
     "edge_tex_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     # table, counts, zbuf, obs, texture, buf_final, g_out, n_tiles, n_tx, tile_h, tile_w, cap, C, err,
-    # tex_h, tex_w, g_table, g_buf0, g_texture, stream
-    "edge_tex_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    # tex_h, tex_w, threads, blocks_per_tile, pixels, smem_bytes, g_table, g_buf0, g_texture, stream
+    "edge_tex_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     # win, dv, du, ev, eu, n_quads, C, out, stream
     "quad_blend_fwd": (_P, _P, _P, _P, _P, _I, _I, _P, _P),
     # win, dv, du, ev, eu, ct, n_quads, C, d_win, d_ev, d_eu, stream

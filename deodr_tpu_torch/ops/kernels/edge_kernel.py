@@ -25,10 +25,13 @@ Edge-table row layout (width 25 + 3·C), one row per slot
    y_begin | y_end | a coeffs (ax, ay, ac per channel) | z coeffs (3) | active]
 
 Gradient rows (n_tiles, cap, 3 + 3·C): [g_t (3) | g_a (3 per channel)],
-each as (Σ g·x, Σ g·y, Σ g); rows ≥ count are 0.
+each as (Σ g·x, Σ g·y, Σ g); rows ≥ count are 0, every entry written by
+the kernel.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -40,6 +43,63 @@ _E_T = 16
 _E_YBEG, _E_YEND = 19, 20
 _E_A = 21
 T_DIV_EPS = 1e-6
+# the backward kernels' frame (csrc/common.cuh): rows staged per chunk, the
+# per-warp partial row width, threads per block, the largest portable
+# thread-block cluster, and the pixels a lane holds at most
+EDGE_CHUNK = 64
+MOMENTS = 16
+EDGE_BWD_THREADS = 256
+MAX_CLUSTER = 8
+EDGE_BWD_PIXELS = 3
+
+
+class EdgeBwdShape(NamedTuple):
+    """Launch shape of the edge backward kernels, all of it passed to the
+    kernel's entry point: each tile's pixels are shared by one cluster of
+    ``blocks_per_tile`` blocks of ``threads`` threads. A warp owns a region
+    of its tile, its lanes a 16 × 2 patch and each lane
+    ``pixels_per_thread`` pixels in as many patches; a tile with more
+    regions than its blocks have warps takes several walks over its slots.
+    Every block holds ``smem_bytes`` of shared memory, whatever the table's
+    capacity (the launcher refuses a size its layout does not take)."""
+
+    threads: int
+    blocks_per_tile: int
+    pixels_per_thread: int
+    smem_bytes: int
+
+
+def _regions(tile_h: int, tile_w: int, pixels: int) -> int:
+    """Warp regions of a tile at ``pixels`` pixels a lane, as ``Regions`` in
+    csrc/common.cuh counts them: rp rows × cp columns of 16 × 2 patches, rp
+    the largest divisor of ``pixels`` that the tile's rows of patches hold."""
+    cols, rows = -(-tile_w // 16), -(-tile_h // 2)
+    rp = max((d for d in range(1, pixels + 1) if pixels % d == 0 and d <= rows), default=1)
+    return -(-cols // (pixels // rp)) * -(-rows // rp)
+
+
+def edge_bwd_launch_shape(tile_h: int, tile_w: int, nb_colors: int, textured: bool, itemsize: int) -> EdgeBwdShape:
+    """Launch shape of ``edge_bwd`` (``textured=False``) or
+    ``edge_tex_bwd`` (``textured=True``): 256 threads a block (fewer on a tile
+    of fewer 16 × 2 patches); the fewest blocks a tile (at most 8), then the
+    fewest pixels a lane (at most 3), that cover the tile in one pass, else 8
+    blocks at 3 pixels in several passes. Fewer blocks a tile mean fewer
+    clusters, which cost the scheduler time each. The textured kernel takes
+    the fewest pixels first: at one pixel a lane it loads the next slot's
+    texels while the current slot un-blends. Shared memory holds one 64-row
+    chunk of the table, each warp's 16 partial sums per row of the chunk,
+    and two chunks' block sums, so it does not grow with ``cap``."""
+    patches = -(-tile_w // 16) * -(-tile_h // 2)
+    threads = min(EDGE_BWD_THREADS, 32 * max(1, patches))
+    warps = threads // 32
+    w = edge_row_width(nb_colors) + (10 if textured else 0)
+    gw = grad_row_width(nb_colors) + (9 if textured else 0)
+    smem = (EDGE_CHUNK * w + warps * EDGE_CHUNK * MOMENTS + 2 * EDGE_CHUNK * gw) * itemsize
+    shapes = [(blocks, pixels) for blocks in range(1, MAX_CLUSTER + 1) for pixels in range(1, EDGE_BWD_PIXELS + 1)]
+    for blocks, pixels in sorted(shapes, key=lambda bp: bp[::-1]) if textured else shapes:
+        if _regions(tile_h, tile_w, pixels) <= blocks * warps:
+            return EdgeBwdShape(threads, blocks, pixels, smem)
+    return EdgeBwdShape(threads, MAX_CLUSTER, EDGE_BWD_PIXELS, smem)
 
 
 def edge_row_width(nb_colors: int) -> int:
@@ -73,6 +133,25 @@ def _band_mask_and_t(row, yy, xx, zb, c):
     z = _plane(row, _e_z(c), yy, xx)
     mask = cov & (z < zb) & (row[:, _e_act(c)] > 0.5) & torch.isfinite(t)
     return mask, torch.where(mask, t, 0.5)
+
+
+def covered_visits(table_tile, counts, grid: TileGrid) -> int:
+    """Number of (pixel, slot) pairs at which a slot's four band-clip planes
+    and its y range hold: the pairs whose band test has to be made pixel by
+    pixel. Every other pair fails on a rectangle around the pixel too, where
+    a kernel rejects it for many pixels at once. Takes an untextured or a
+    textured table (the same leading columns)."""
+    nt, cap, _ = table_tile.shape
+    yy, xx = tile_coords(grid, table_tile.dtype, table_tile.device)
+    count = counts.to(torch.int64).clamp(max=cap)
+    n = torch.zeros((), dtype=torch.int64, device=table_tile.device)
+    for k in range(int(count.max()) if nt else 0):
+        row = table_tile[:, k, :, None, None]
+        cov = (k < count)[:, None, None] & (yy >= row[:, _E_YBEG]) & (yy <= row[:, _E_YEND])
+        for i in range(4):
+            cov = cov & (_plane(row, 3 * i, yy, xx) > row[:, _E_TH + i])
+        n += cov.sum()
+    return int(n)
 
 
 def _t_div(t):
@@ -205,19 +284,22 @@ def edge_fwd(table_tile, buffer0, z_pad, obs_pad, counts, grid: TileGrid, error_
 
 def edge_bwd(table_tile, final, z_pad, obs_pad, g_out, counts, grid: TileGrid, error_mode: bool,
              impl: str = "kernel"):
-    """Backward edge pass → (g_rows (n_tiles, cap, 3 + 3C), g_buf0)."""
+    """Backward edge pass → (g_rows (n_tiles, cap, 3 + 3C), g_buf0),
+    launched in the shape of :func:`edge_bwd_launch_shape`."""
     if not kernels.use_kernel(final, impl):
         return edge_bwd_reference(table_tile, final, z_pad, obs_pad, g_out, counts, grid, error_mode)
     c, cap = _check_inputs(table_tile, final, z_pad, obs_pad, counts, grid, error_mode)
     kernels.check_tensor(g_out, "g_out", final.dtype, final.shape)
-    g_rows = torch.zeros((grid.n_tiles, cap, grad_row_width(c)), dtype=final.dtype, device=final.device)
+    shape = edge_bwd_launch_shape(grid.tile_h, grid.tile_w, c, False, final.element_size())
+    # the kernel writes every entry: rows ≥ count as 0
+    g_rows = torch.empty((grid.n_tiles, cap, grad_row_width(c)), dtype=final.dtype, device=final.device)
     g_buf0 = torch.empty_like(final)
     kernels.launch(
         "edge_bwd", final.dtype,
         table_tile.data_ptr(), counts.data_ptr(), z_pad.data_ptr(),
         obs_pad.data_ptr() if error_mode else None, final.data_ptr(), g_out.data_ptr(),
         grid.n_tiles, grid.n_tx, grid.tile_h, grid.tile_w, cap, c, int(error_mode),
-        g_rows.data_ptr(), g_buf0.data_ptr(),
+        *shape, g_rows.data_ptr(), g_buf0.data_ptr(),
     )
     return g_rows, g_buf0
 

@@ -35,7 +35,8 @@ Gradient rows (n_tiles, cap, 12 + 3·C):
   [g_t (3) | g_a (3 per channel) | g_uc (3) | g_vc (3) | g_lc (3)]
 
 each as (Σ g·x, Σ g·y, Σ g); a textured slot leaves its g_a columns 0, a
-plain slot its g_uc, g_vc, g_lc columns, and rows ≥ count are 0.
+plain slot its g_uc, g_vc, g_lc columns, and rows ≥ count are 0, every
+entry written by the kernel.
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ from deodr_tpu_torch.ops.kernels.edge_kernel import (
     _plane,
     _sq_residual,
     _unblend,
+    edge_bwd_launch_shape,
     edge_row_width,
 )
 
@@ -251,12 +253,15 @@ def edge_tex_fwd(table_tile, texture, buffer0, z_pad, obs_pad, counts, grid: Til
 def edge_tex_bwd(table_tile, texture, final, z_pad, obs_pad, g_out, counts, grid: TileGrid, error_mode: bool,
                  impl: str = "kernel"):
     """Backward textured edge pass → (g_rows (n_tiles, cap, 12 + 3C),
-    g_buf0, g_texture)."""
+    g_buf0, g_texture), launched in the shape of
+    :func:`.edge_kernel.edge_bwd_launch_shape`."""
     if not kernels.use_kernel(final, impl):
         return edge_tex_bwd_reference(table_tile, texture, final, z_pad, obs_pad, g_out, counts, grid, error_mode)
     c, cap = _check_inputs(table_tile, texture, final, z_pad, obs_pad, counts, grid, error_mode)
     kernels.check_tensor(g_out, "g_out", final.dtype, final.shape)
-    g_rows = torch.zeros((grid.n_tiles, cap, tex_grad_row_width(c)), dtype=final.dtype, device=final.device)
+    shape = edge_bwd_launch_shape(grid.tile_h, grid.tile_w, c, True, final.element_size())
+    # the kernel writes every entry of g_rows (rows ≥ count as 0) and adds into g_tex
+    g_rows = torch.empty((grid.n_tiles, cap, tex_grad_row_width(c)), dtype=final.dtype, device=final.device)
     g_buf0 = torch.empty_like(final)
     g_tex = torch.zeros_like(texture)
     kernels.launch(
@@ -264,7 +269,7 @@ def edge_tex_bwd(table_tile, texture, final, z_pad, obs_pad, g_out, counts, grid
         table_tile.data_ptr(), counts.data_ptr(), z_pad.data_ptr(),
         obs_pad.data_ptr() if error_mode else None, texture.data_ptr(), final.data_ptr(), g_out.data_ptr(),
         grid.n_tiles, grid.n_tx, grid.tile_h, grid.tile_w, cap, c, int(error_mode),
-        texture.shape[0], texture.shape[1], g_rows.data_ptr(), g_buf0.data_ptr(), g_tex.data_ptr(),
+        texture.shape[0], texture.shape[1], *shape, g_rows.data_ptr(), g_buf0.data_ptr(), g_tex.data_ptr(),
     )
     return g_rows, g_buf0, g_tex
 

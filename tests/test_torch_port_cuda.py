@@ -17,10 +17,16 @@ chip_smoke.py's limits, then the whole textured ``render_scene`` with
 ``impl="kernel"`` against ``impl="reference"``. The last two hold kernel B4
 (the quad blend) against its plain versions, directly and through the quad
 fetch, and ``Scene3D`` with the quad fetch against the per-pixel fetch on
-the textured torus of tests/torch_port_scenes.py. The last two hold the
+the textured torus of tests/torch_port_scenes.py. The last four hold the
 redesigned backward kernels against their plain versions on edge cases:
 B1b at every tile height the planner picks (every cluster shape) with
-uniform, striped and run-length slot maps, and B4b at every channel count.
+uniform, striped and run-length slot maps, B4b at every channel count, and
+B2b and B3b at every tile height and channel count on the synthetic edge
+tables of tests/torch_port_scenes.py (tiles of 0, 1, 31, 33, 70 and more
+slots, one at the capacity). The backward kernels that write whole tables
+are checked to write every entry (a NaN-filled block waits in the caching
+allocator) and, where they add nothing with atomics, to give bit-identical
+tables from call to call.
 """
 
 import numpy as np
@@ -83,13 +89,16 @@ def test_edge_tex_kernel_matches_plain_version(cuda_device, dtype, plan, error_m
     assert float((out_k - out_r).abs().max()) <= lim_out
     g_out = torch.from_numpy(np.random.RandomState(6).randn(*out_r.shape)).to(cuda_device, dtype)
     bargs = (et.table_tile, texture, out_r, z_pad, obs_pad, g_out, et.counts, et.grid, error_mode)
-    got = etk.edge_tex_bwd(*bargs)
     want = etk.edge_tex_bwd(*bargs, impl="reference")
+    _prefill_allocator(want[0].numel(), dtype, cuda_device)
+    got = etk.edge_tex_bwd(*bargs)
+    again = etk.edge_tex_bwd(*bargs)
     torch.cuda.synchronize()
     for name, a, b in zip(("g_rows", "g_buf0", "g_texture"), got, want):
         assert float(b.abs().max()) > 0, name
         assert rel(a, b) <= lim_grad, name
-    assert kernels.LAUNCHES["edge_tex_fwd"] == 1 and kernels.LAUNCHES["edge_tex_bwd"] == 1
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    assert kernels.LAUNCHES["edge_tex_fwd"] == 1 and kernels.LAUNCHES["edge_tex_bwd"] == 2
 
     # the whole textured render: kernels against plain versions
     fields, kw = plan_scene(plan)
@@ -309,3 +318,95 @@ def test_quad_blend_bwd_kernel_matches_plain_version(cuda_device, dtype, c, q):
     read = torch.zeros((q, 64), dtype=torch.bool, device=cuda_device).scatter_(1, pos, True)
     unread = ~read[:, :, None].expand(q, 64, c).reshape(q, 64 * c)
     assert bool((got[0][unread] == 0).all()) and bool(torch.isfinite(got[0]).all())
+
+
+def _check_edge_bwd(bwd, args, counts, cap, dtype, device, n_outputs):
+    """One edge backward wrapper against its plain version: within 1e-9
+    (float64) or chip_smoke.py's limits (float32: g_rows and g_texture 1e-3
+    of scale, g_buf0 1e-4); g_rows from a NaN-filled allocator block, rows
+    at or above a tile's count exactly 0, every entry finite, two calls'
+    g_rows (and g_buf0) bit-identical, one launch per call."""
+    from deodr_tpu_torch.ops import kernels
+
+    lim_rows, lim_buf = (1e-9, 1e-9) if dtype == torch.float64 else (1e-3, 1e-4)
+    want = bwd(*args, impl="reference")
+    assert float(want[0].abs().max()) > 0
+    _prefill_allocator(want[0].numel(), dtype, device)
+    kernels.reset_launches()
+    got = bwd(*args)
+    again = bwd(*args)
+    torch.cuda.synchronize()
+    assert sum(kernels.LAUNCHES.values()) == 2
+    assert len(got) == n_outputs and bool(torch.isfinite(got[0]).all())
+    for t, n in enumerate(counts.clamp(max=cap).tolist()):
+        assert bool((got[0][t, n:] == 0).all()), t
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    assert _rel(got[0], want[0]) <= lim_rows
+    assert float((got[1] - want[1]).abs().max()) <= lim_buf
+    if n_outputs == 3:
+        assert float(want[2].abs().max()) > 0 and _rel(got[2], want[2]) <= lim_rows
+
+
+@pytest.mark.parametrize("tile_h", [8, 16, 32, 48])
+@pytest.mark.parametrize("error_mode", [False, True], ids=["image", "error"])
+@pytest.mark.parametrize("c", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_edge_bwd_kernel_matches_plain_version(cuda_device, dtype, c, error_mode, tile_h):
+    """B2b against its plain version on the synthetic edge tables: tiles of
+    0, 1, 31, 33, 70 slots, one at the capacity and one above it, at every
+    cluster shape of the planner's tile heights."""
+    from deodr_tpu_torch.ops.kernels import edge_kernel as ek
+    from torch_port_scenes import SYNTH_CAP, synthetic_edge_tables
+
+    table, _, _, final, z_pad, obs_pad, counts, grid = synthetic_edge_tables(tile_h, c, error_mode, False, dtype,
+                                                                             cuda_device)
+    g_out = torch.from_numpy(np.random.RandomState(c).randn(*final.shape)).to(cuda_device, dtype)
+    args = (table, final, z_pad, obs_pad, g_out, counts, grid, error_mode)
+    _check_edge_bwd(ek.edge_bwd, args, counts, SYNTH_CAP, dtype, cuda_device, 2)
+
+
+@pytest.mark.parametrize("tile_h", [8, 16, 32, 48])
+@pytest.mark.parametrize("error_mode", [False, True], ids=["image", "error"])
+@pytest.mark.parametrize("c", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_edge_tex_bwd_kernel_matches_plain_version(cuda_device, dtype, c, error_mode, tile_h):
+    """B3b against its plain version on the synthetic edge tables with about
+    half the slots textured (uv past the texture's borders) and the others
+    plain with NaN uv, in tiles of up to 70 used slots."""
+    from deodr_tpu_torch.ops.kernels import edge_tex_kernel as etk
+    from torch_port_scenes import SYNTH_CAP, synthetic_edge_tables
+
+    table, texture, _, final, z_pad, obs_pad, counts, grid = synthetic_edge_tables(tile_h, c, error_mode, True, dtype,
+                                                                                   cuda_device)
+    g_out = torch.from_numpy(np.random.RandomState(c).randn(*final.shape)).to(cuda_device, dtype)
+    args = (table, texture, final, z_pad, obs_pad, g_out, counts, grid, error_mode)
+    _check_edge_bwd(etk.edge_tex_bwd, args, counts, SYNTH_CAP, dtype, cuda_device, 3)
+
+
+@pytest.mark.parametrize("textured", [False, True], ids=["plain", "textured"])
+def test_edge_bwd_launchers_refuse_another_shared_size(cuda_device, textured, monkeypatch):
+    """The shared bytes that edge_bwd_launch_shape hands an edge backward
+    kernel's entry point are the ones its layout takes: 8 bytes fewer or
+    more are refused with an error, and nothing is launched."""
+    from deodr_tpu_torch.ops import kernels
+    from deodr_tpu_torch.ops.kernels import edge_kernel as ek
+    from deodr_tpu_torch.ops.kernels import edge_tex_kernel as etk
+    from torch_port_scenes import synthetic_edge_tables
+
+    table, texture, _, final, z_pad, obs_pad, counts, grid = synthetic_edge_tables(16, 3, False, textured,
+                                                                                   torch.float32, cuda_device)
+    g_out = torch.ones_like(final)
+    if textured:
+        call = lambda: etk.edge_tex_bwd(table, texture, final, z_pad, obs_pad, g_out, counts, grid, False)  # noqa: E731
+    else:
+        call = lambda: ek.edge_bwd(table, final, z_pad, obs_pad, g_out, counts, grid, False)  # noqa: E731
+    call()
+    shape = ek.edge_bwd_launch_shape
+    for delta in (-8, 8):
+        for module in (ek, etk):
+            monkeypatch.setattr(module, "edge_bwd_launch_shape",
+                                lambda *a, delta=delta: shape(*a)._replace(smem_bytes=shape(*a).smem_bytes + delta))
+        kernels.reset_launches()
+        with pytest.raises(RuntimeError, match="kernel failed"):
+            call()
+        assert sum(kernels.LAUNCHES.values()) == 0

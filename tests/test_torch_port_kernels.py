@@ -189,3 +189,101 @@ def test_raster_bwd_launch_shape_refuses_what_no_block_holds():
     with pytest.raises(ValueError, match=r"cap=1384 .*3·D=21 .*232448"):
         rk.raster_bwd_launch_shape(16, 128, 1384, 7, 8)
     assert rk.raster_bwd_launch_shape(2, 40, 8, 3, 4) == (96, 1, 8 * 9 * 4)
+
+
+@pytest.mark.parametrize("textured", [False, True], ids=["plain", "textured"])
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("tile_h,plain,textured_shape", [(8, (2, 2, 1), (4, 1, 1)), (16, (3, 3, 1), (8, 1, 1)),
+                                                         (32, (6, 3, 1), (8, 2, 1)), (48, (8, 3, 1), (8, 3, 1))])
+def test_edge_bwd_launch_shape(tile_h, plain, textured_shape, dtype, c, textured):
+    """The edge backward kernels' launch shape at the planner's tile heights
+    (width 128): blocks of 256 threads, the fewest blocks a tile (a portable
+    cluster of at most 8) and then the fewest pixels a lane (at most 3) that
+    cover the tile in one pass (the textured kernel: the fewest pixels, then
+    the fewest blocks), and shared memory for one 64-row chunk of the table,
+    16 partial sums per warp and row, and two chunks' block sums: nothing
+    that grows with the table's capacity."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    shape = ek.edge_bwd_launch_shape(tile_h, 128, c, textured, itemsize)
+    blocks, pixels, passes = textured_shape if textured else plain
+    row_w, grad_w = (35 + 3 * c, 12 + 3 * c) if textured else (25 + 3 * c, 3 + 3 * c)
+    smem = (64 * row_w + 8 * 64 * 16 + 2 * 64 * grad_w) * itemsize
+    assert shape == (256, blocks, pixels, smem)
+    per_pass = shape.threads * shape.blocks_per_tile * shape.pixels_per_thread
+    assert per_pass * (passes - 1) < tile_h * 128 <= per_pass * passes
+
+
+def test_edge_bwd_launch_shape_small_tiles_and_largest_block():
+    """A tile of fewer 16 × 2 patches than a block has warps gets a warp per
+    patch and one block; a tile without pixels one warp that writes the zero
+    rows; a tile larger than 8 blocks hold takes several passes; the largest
+    shared memory any shape asks for (textured, float64, C = 4) fits a
+    block, so no table is refused."""
+    assert ek.edge_bwd_launch_shape(2, 40, 3, False, 4) == (96, 1, 1, (64 * 34 + 3 * 64 * 16 + 2 * 64 * 12) * 4)
+    assert ek.edge_bwd_launch_shape(0, 128, 3, True, 4)[:3] == (32, 1, 1)
+    shape = ek.edge_bwd_launch_shape(64, 128, 3, False, 4)
+    assert shape[:3] == (256, 8, 3) and 8 * 256 * 3 < 64 * 128 <= 2 * 8 * 256 * 3
+    largest = max(ek.edge_bwd_launch_shape(th, 128, c, tex, 8).smem_bytes
+                  for th in (8, 16, 32, 48, 64) for c in (1, 2, 3, 4) for tex in (False, True))
+    assert largest == (64 * 47 + 8 * 64 * 16 + 2 * 64 * 24) * 8 <= rk.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("textured", [False, True], ids=["plain", "textured"])
+def test_covered_visits_counts_the_per_pixel_band_tests(textured):
+    """covered_visits, the count behind the edge kernels' operations bound,
+    on the synthetic tables: every (pixel, slot) pair the band mask paints
+    is counted, slots at or above a tile's count are not, and most pairs of
+    these thin bands fail the clip planes or the y range."""
+    from deodr_tpu_torch.ops.kernels import tile_coords, to_tiles
+    from torch_port_scenes import synthetic_edge_tables
+
+    table, _, _, _, z_pad, _, counts, grid = synthetic_edge_tables(16, 3, False, textured)
+    yy, xx = tile_coords(grid, table.dtype, table.device)
+    zb = to_tiles(z_pad, grid)
+    count = counts.to(torch.int64).clamp(max=table.shape[1])
+    painted = all_pairs = 0
+    for k in range(int(count.max())):
+        mask, _ = ek._band_mask_and_t(table[:, k, :, None, None], yy, xx, zb, 3)
+        painted += int((mask & (k < count)[:, None, None]).sum())
+        all_pairs += int((k < count).sum()) * grid.tile_h * grid.tile_w
+    covered = ek.covered_visits(table, counts, grid)
+    assert 0 < painted <= covered < all_pairs // 4
+    more = counts.clone()
+    more[int(torch.argmin(counts))] = table.shape[1]  # the padding rows of one more tile hold bands too
+    assert ek.covered_visits(table, more, grid) > covered
+
+
+@pytest.mark.parametrize("error_mode", [False, True], ids=["image", "error"])
+@pytest.mark.parametrize("textured", [False, True], ids=["plain", "textured"])
+def test_edge_plain_backward_matches_autograd_f64_many_slots(textured, error_mode):
+    """The plain backward versions against autograd of their plain forward
+    versions, in float64, on the synthetic tables of the card tests: tiles
+    of 0, 1, 31, 33 and 70 slots, one at the capacity (72) and one above it,
+    half the slots textured where ``textured``."""
+    from deodr_tpu_torch.ops.kernels import edge_tex_kernel as etk
+    from torch_port_scenes import synthetic_edge_tables
+
+    table, texture, buf, _, z_pad, obs_pad, counts, grid = synthetic_edge_tables(16, 3, error_mode, textured)
+    leaves = [table.clone().requires_grad_(True), buf.clone().requires_grad_(True)]
+    if textured:
+        leaves.append(texture.clone().requires_grad_(True))
+        out = etk.edge_tex_fwd_reference(leaves[0], leaves[2], leaves[1], z_pad, obs_pad, counts, grid, error_mode)
+    else:
+        out = ek.edge_fwd_reference(leaves[0], leaves[1], z_pad, obs_pad, counts, grid, error_mode)
+    g_out = torch.from_numpy(np.random.RandomState(7).randn(*out.shape))
+    auto = torch.autograd.grad((out * g_out).sum(), leaves)
+    c = 3
+    differentiable = list(range(16, 19)) + list(range(21, 21 + 3 * c))
+    if textured:
+        g_rows, g_buf0, g_tex = etk.edge_tex_bwd_reference(table, texture, out.detach(), z_pad, obs_pad, g_out, counts,
+                                                           grid, error_mode)
+        differentiable += list(range(25 + 3 * c, 34 + 3 * c))
+        assert float((auto[2] - g_tex).abs().max()) <= 1e-9 * float(auto[2].abs().max())
+    else:
+        g_rows, g_buf0 = ek.edge_bwd_reference(table, out.detach(), z_pad, obs_pad, g_out, counts, grid, error_mode)
+    g_auto = auto[0][:, :, differentiable]
+    scale = float(g_auto.abs().max())
+    assert scale > 0 and int((g_rows[:, :, 0] != 0).sum()) > 64
+    assert float((g_auto - g_rows).abs().max()) <= 1e-9 * scale
+    assert float((auto[1] - g_buf0).abs().max()) <= 1e-9 * float(auto[1].abs().max())

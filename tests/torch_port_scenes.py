@@ -152,3 +152,81 @@ def torus_camera_arrays(view=0):
     h, w = TORUS_HW
     intrinsic = np.array([[131.7, 0, w / 2 + 0.37], [0, 131.7, h / 2 - 0.29], [0, 0, 1]])
     return extrinsic, intrinsic, h, w
+
+
+# counts of the synthetic edge tiles: none, one, just under and just over 32, more than 64 (one just over),
+# exactly the capacity, and above it (clamped)
+SYNTH_CAP = 72
+SYNTH_COUNTS = (0, 1, 31, 33, 70, SYNTH_CAP, SYNTH_CAP + 5, 65)
+
+
+def synthetic_edge_tables(tile_h, nb_colors, error_mode, textured, dtype=torch.float64, device="cpu", seed=0,
+                          tex_hw=(40, 56)):
+    """Edge-pass inputs on a 2 × 4 grid of tile_h × 128 tiles with the slot
+    counts of SYNTH_COUNTS: each slot a random band (half-width 1-3 px,
+    length 5-60 px) through a random point of its tile, T in 0.05-0.95,
+    colour planes near 0.5, a z-buffer that hides a tenth of the pixels,
+    a tenth of the slots inactive. With ``textured``, about half the slots
+    sample a random texture over uv that runs past its borders (clamped
+    taps), and the other slots carry NaN uv. Rows at or above a tile's
+    count hold bands too, which would paint if a kernel read them. →
+    (table_tile, texture or None, buffer0, final, z_pad, obs_pad, counts,
+    grid), ``final`` being the plain forward of buffer0."""
+    from deodr_tpu_torch.ops.kernels import TileGrid
+    from deodr_tpu_torch.ops.kernels import edge_kernel as ek
+    from deodr_tpu_torch.ops.kernels import edge_tex_kernel as etk
+
+    rng = np.random.RandomState(seed)
+    c = nb_colors
+    grid = TileGrid(2, 4, tile_h, 128)
+    w0 = ek.edge_row_width(c)
+    width = etk.tex_row_width(c) if textured else w0
+    table = np.full((grid.n_tiles, SYNTH_CAP, width), np.nan)
+    for t in range(grid.n_tiles):
+        ty, tx = divmod(t, grid.n_tx)
+        for k in range(SYNTH_CAP):
+            p0 = np.array([tx * 128 + rng.uniform(0, 128), ty * tile_h + rng.uniform(0, tile_h)])
+            theta = rng.uniform(0, 2 * np.pi)
+            n, d = np.array([np.cos(theta), np.sin(theta)]), np.array([-np.sin(theta), np.cos(theta)])
+            half, length = rng.uniform(1, 3), rng.uniform(5, 60)
+            row = table[t, k]
+            for i, (vec, th) in enumerate(((n, -half), (-n, -half), (d, -length), (-d, -length))):
+                row[3 * i : 3 * i + 3] = vec[0], vec[1], -vec @ p0
+                row[12 + i] = th
+            slope = 0.45 / half
+            row[16:19] = slope * n[0], slope * n[1], 0.5 - slope * (n @ p0)
+            row[19], row[20] = p0[1] - rng.uniform(2, 40), p0[1] + rng.uniform(2, 40)
+            for ch in range(c):
+                ax, ay = rng.normal(0, 0.01, 2)
+                row[21 + 3 * ch : 24 + 3 * ch] = ax, ay, 0.5 + rng.normal(0, 0.2) - ax * p0[0] - ay * p0[1]
+            row[21 + 3 * c : 24 + 3 * c] = rng.normal(0, 1e-3), rng.normal(0, 1e-3), 0.5
+            row[24 + 3 * c] = float(rng.rand() > 0.1)
+            if textured:
+                if rng.rand() < 0.5:
+                    uv0 = rng.uniform(-2, [tex_hw[1] + 1, tex_hw[0] + 1])
+                    jac = rng.normal(0, 0.6, (2, 2))
+                    for j, (coef, base) in enumerate(((jac[0], uv0[0]), (jac[1], uv0[1]))):
+                        row[w0 + 3 * j : w0 + 3 * j + 3] = coef[0], coef[1], base - coef @ p0
+                    lx, ly = rng.normal(0, 0.01, 2)
+                    row[w0 + 6 : w0 + 9] = lx, ly, 0.8 - lx * p0[0] - ly * p0[1]
+                    row[w0 + 9] = 1.0
+                else:
+                    row[w0 + 9] = 0.0  # a plain slot: its uv and shade stay NaN
+    hp, wp = grid.padded_hw
+    nch = 1 if error_mode else c
+    buffer0 = rng.uniform(0, 1, (nch, hp, wp))
+    z_pad = np.where(rng.rand(hp, wp) < 0.1, 0.3, 1.0)
+    obs_pad = rng.uniform(0, 1, (c, hp, wp))
+    texture = rng.uniform(0, 1, tex_hw + (c,)) if textured else None
+
+    def tensor(a):
+        return None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
+
+    table_t, tex_t, buf_t, z_t, obs_t = map(tensor, (table, texture, buffer0, z_pad, obs_pad))
+    counts = torch.tensor(SYNTH_COUNTS, dtype=torch.int32, device=device)
+    with torch.no_grad():
+        if textured:
+            final = etk.edge_tex_fwd_reference(table_t, tex_t, buf_t, z_t, obs_t, counts, grid, error_mode)
+        else:
+            final = ek.edge_fwd_reference(table_t, buf_t, z_t, obs_t, counts, grid, error_mode)
+    return table_t, tex_t, buf_t, final, z_t, obs_t, counts, grid
