@@ -11,7 +11,10 @@ Phases, each of which fails the run (non-zero exit) on any miss:
    tiles, float32). The raster and edge kernels against their plain PyTorch
    versions on the card: slot_map exact, z within 1e-5, images within 1e-4,
    gradient tables within 1e-3 of their scale (the edge backward's from two
-   calls bit-identical); times of kernel and plain version. Then
+   calls bit-identical); the (warp region, slot) pairs each forward
+   kernel's cull keeps against all of them, and the (pixel, slot) pairs its
+   slots cover (counted by the plain mirrors in the wrapper modules); times
+   of kernel and plain version. Then
    ``render_scene`` forward + backward at σ = 0 and σ = 1, image and error
    mode, with ``check_capacity=True``, held against the
    same call with ``impl="reference"``; launch counts are zeroed just
@@ -26,7 +29,8 @@ Phases, each of which fails the run (non-zero exit) on any miss:
    mode (buffer within 1e-4, gradient rows and texture gradient within
    1e-3 of their scale: float32 atomics sum in another order; gradient rows
    from two calls bit-identical) and the
-   raster kernel again with its 7 attribute planes. Then ``render_scene``
+   raster kernel again with its 7 attribute planes (and its cull counts).
+   Then ``render_scene``
    forward + backward with ``check_capacity=True`` against
    ``impl="reference"``: image, z-buffer and the gradients to ij, uv, shade
    and texture, with launch counts zeroed just before and read just after.
@@ -56,13 +60,17 @@ Phases, each of which fails the run (non-zero exit) on any miss:
    ``bench``, ``duck``, ``duck_scene3d`` and ``duck_quad``. ``ms`` times calls
    of the wrapper with CUDA events, host cost of the call included;
    ``device_ms`` (and ``library_device_ms``) is the device time of one call
-   from ``torch.profiler``, every kernel's in one profiler session. The same
-   session counts the device operations of one call of the backward
-   wrappers, which must be one for the raster, quad-blend and edge backward
-   (the kernel, no memset beside it) and two for the textured edge backward
-   (the texture gradient's zero-fill and the kernel). Each backward bound is
-   printed twice: with the used rows of its table written, and with the
-   whole table (the zero rows up to the capacity) written;
+   from ``torch.profiler``, every kernel's in one profiler session (each
+   function's device events are told apart by the card's idle gaps and
+   checked by what they hold: ``reps`` repeats of one sequence of
+   operations, with the wrapper's kernel by name). The same session counts the
+   device operations of one call of the wrappers, which must be one for the
+   raster and edge forward and backward and the quad-blend backward (the
+   kernel, no memset beside it) and two for the textured edge backward (the
+   texture gradient's zero-fill and the kernel). A kernel's operations
+   bound counts only the (pixel, slot) pairs its slots cover; each backward
+   bound is printed twice: with the used rows of its table written, and
+   with the whole table (the zero rows up to the capacity) written;
 7. last line ``{"ok": true, "device": {...}}``.
 
 The scenes come from ``deodr_tpu_torch.bench_scene`` (numpy, seed 0, as
@@ -89,9 +97,10 @@ AA_EDGE_CAPACITY = 600
 # float operations per (pixel, slot) visit of each kernel's per-slot test,
 # counted from the kernel source (multiplies, adds, compares); the blend of
 # the few pixels inside a band is left out, so the bound stays a lower bound.
-# The raster kernel visits every pixel of a tile per slot; an edge kernel
-# needs to visit only the pixels where the band's clip planes and y range
-# hold (edge_kernel.covered_visits), the rest fail on a whole region at once
+# A kernel needs to visit only the pixels a slot covers (the raster
+# coverage predicate, raster_kernel.covered_visits; an edge band's clip
+# planes and y range, edge_kernel.covered_visits): the rest fail on a whole
+# region at once
 OPS_PER_VISIT = {"raster_fwd": 33, "edge_fwd": 33, "edge_bwd": 33, "edge_tex_fwd": 33, "edge_tex_bwd": 33}
 # the main paths whose measurements each kernel's records carry: the kernels line has one record per (kernel,
 # path). "duck" is render_scene on the duck's constant plan, "duck_scene3d" and "duck_quad" Scene3D on the
@@ -152,45 +161,69 @@ def time_ms(fn, reps: int, device) -> float:
 
 
 def device_times(fns, device, reps: int = 10):
-    """Device time of one call of each function of ``fns`` (key →
-    function), all measured in one ``torch.profiler`` session (a session's
-    start costs seconds): after a warm-up, the ``reps`` calls of each
-    function run in a window of their own, 2 ms of idle card before and
-    after, and the durations of the device operations that start within a
-    window are summed. Beside ``time_ms`` it tells a kernel's own time from
-    the host's cost of calling it → key → (ms, device operations) per call;
-    (None, None) without a card or device events."""
+    """Device time of one call of each function of ``fns`` (key → (function,
+    the name of the hand kernel it launches, or None for a PyTorch call)),
+    all measured in one ``torch.profiler`` session (a session's start costs
+    seconds): after a warm-up, before and inside the session (whose first
+    device events can go missing), the ``reps`` calls of each function run
+    in turn with 10 ms of idle card between two functions, and the device
+    operations fall into one group per function where the card idles for
+    more than 3 ms (the profiler's device and host clocks can drift apart by
+    milliseconds, so the groups are not matched by host time). A group is
+    given to its function by what it holds: ``reps`` repeats of one
+    sequence of device operations, which launches the function's hand
+    kernel, or none of the hand kernels (namespace ``deodr``) for a PyTorch
+    call; a group that split or lost its events cannot hand its
+    neighbour's time to a function unnoticed. A group's durations are
+    summed. Beside ``time_ms`` it tells a kernel's own time from the host's
+    cost of calling it → key → (ms, device operations) per call; (None,
+    None) without a card. Raises ``Failure`` where three sessions give no
+    such groups."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     if device.type != "cuda" or not fns:
         return dict.fromkeys(fns, (None, None))
-    for fn in fns.values():
+    for fn, _ in fns.values():
         fn()
     torch.cuda.synchronize()
+
+    def holds(group, kernel):
+        seq = [op_name for _, _, op_name in group]
+        k = len(seq) // reps
+        if k == 0 or len(seq) != k * reps or any(seq[i] != seq[i % k] for i in range(len(seq))):
+            return False
+        return any(kernel in s for s in seq[:k]) if kernel else not any("deodr" in s for s in seq[:k])
+
+    seen = []
     for _ in range(3):  # the profiler now and then records no device events at all
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for i, fn in enumerate(fns.values()):
-                time.sleep(0.002)
-                with record_function(f"smoke window {i}"):
-                    for _ in range(reps):
-                        fn()
-                    torch.cuda.synchronize()
-            time.sleep(0.002)
-        events = prof.events()
-        windows = {e.name: e.time_range for e in events
-                   if e.device_type == DeviceType.CPU and e.name.startswith("smoke window ")}
-        ops = [e for e in events if e.device_type == DeviceType.CUDA and not e.name.startswith("smoke window ")]
-        if ops and len(windows) == len(fns):
+            for fn, _ in fns.values():  # the warm-up group: a session can miss its first device events
+                fn()
+            torch.cuda.synchronize()
+            for fn, _ in fns.values():
+                time.sleep(0.01)
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+        ops = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                     if e.device_type == DeviceType.CUDA)
+        groups = []
+        for op in ops:
+            if not groups or op[0] - groups[-1][-1][1] > 3000:
+                groups.append([])
+            groups[-1].append(op)
+        misplaced = [(key[1], kernel, sorted({op[2][:60] for op in g}))
+                     for (key, (_, kernel)), g in zip(fns.items(), groups[1:]) if not holds(g, kernel)]
+        if len(groups) == len(fns) + 1 and not misplaced:
             break
+        seen.append(f"{len(groups)} groups for {len(fns)} functions and the warm-up, "
+                    f"{len(misplaced)} not {reps} calls of their function (first: {misplaced[:1]})")
     else:
-        return dict.fromkeys(fns, (None, None))
-    out = {}
-    for i, key in enumerate(fns):
-        w = windows[f"smoke window {i}"]
-        inside = [e.time_range.elapsed_us() for e in ops if w.start - 1000 <= e.time_range.start <= w.end + 1000]
-        out[key] = (sum(inside) / 1e3 / reps, len(inside) / reps) if inside else (None, None)
-    return out
+        raise Failure("device_times: no profiler session gave each function a group of its own kernels: "
+                      + "; ".join(seen))
+    return {key: (sum(end - start for start, end, _ in g) / 1e3 / reps, len(g) / reps)
+            for key, g in zip(fns, groups[1:])}
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -262,6 +295,17 @@ def edge_inputs(scene, tiling, obs, sigma, edge_cap, tex_plan=None):
     return out
 
 
+def cull_line(name, module, table, counts, grid, covered, say):
+    """The work of a forward kernel's region cull on this path's tables:
+    the (warp region, slot) pairs it keeps (counted by the plain mirror of
+    the cull, ``module.region_cull``), against all of them, and the (pixel,
+    slot) pairs the slots cover."""
+    rows = int(counts.to(torch.int64).clamp(max=table.shape[1]).sum())
+    kept = module.region_cull(table, counts, grid)
+    say(f"{name} cull: (warp region, slot) pairs kept {int(kept.sum())} of {rows * kept.shape[1]}; "
+        f"covered (pixel, slot) pairs {covered} of {rows * grid.tile_h * grid.tile_w}")
+
+
 def check_raster_kernels(scene, tiling, device, say, gen):
     """The raster kernels against their plain versions on ``scene``'s
     tables; returns their measurements."""
@@ -275,7 +319,7 @@ def check_raster_kernels(scene, tiling, device, say, gen):
         rt = raster_tables(scene, ij_off, draw, tiling)
         grid, cap_r = rt.grid, rt.setup_tile.shape[1]
         n_px = grid.tile_h * grid.tile_w
-        visits = n_px * int(rt.counts.to(torch.int64).clamp(max=cap_r).sum())
+        visits = rk.covered_visits(rt.setup_tile, rt.counts, grid)
         d = rt.affine_tile.shape[2] // 3
         esz = rt.affine_tile.element_size()
 
@@ -290,6 +334,7 @@ def check_raster_kernels(scene, tiling, device, say, gen):
         check(e_z <= 1e-5 and e_v <= 1e-4, "raster_fwd outside its tolerance")
         rows = int(rt.counts.to(torch.int64).clamp(max=cap_r).sum())
         p_total = grid.n_tiles * n_px
+        cull_line("raster_fwd", rk, rt.setup_tile, rt.counts, grid, visits, say)
         out["raster_fwd"] = dict(
             max_abs_err=max(e_z, e_v),
             ms=time_ms(lambda: rk.raster_fwd(rt.setup_tile, rt.affine_tile, rt.counts, grid), 50, device),
@@ -361,6 +406,7 @@ def check_kernels(scene, tiling, obs, device, say):
                 say(f"edge tables: {et.grid.n_tiles} tiles of {et.grid.tile_h}x{et.grid.tile_w}, {e_rows} slots in "
                     f"use; the band-clip planes and y range hold at {e_visits} of the "
                     f"{e_rows * et.grid.tile_h * et.grid.tile_w} (pixel, slot) pairs (the operations bound's visits)")
+                cull_line("edge_fwd", ek, et.table_tile, et.counts, et.grid, e_visits, say)
                 out["edge_fwd"].update(
                     ms=time_ms(lambda: ek.edge_fwd(*args), 50, device),
                     device_fn=lambda args=args: ek.edge_fwd(*args),
@@ -805,7 +851,8 @@ def check_quad_kernels(inputs, device, say, gen):
             plain_ms=time_ms(lambda: qbk.quad_blend_fwd(*inputs, impl="reference"), 10, device),
             bound=bound_ms(tap_bytes + coef_bytes + px_bytes, q * 4 * c * 12),
             library_ms=lib_fwd_ms,
-            library_device_fn=library_fwd,
+            # the yardsticks' device times: (function, None: no hand kernel)
+            library_device_fn=(library_fwd, None),
         ),
         "quad_blend_bwd": dict(
             max_abs_err=max(max_err(a, b) for a, b in zip(g_k, g_ref)),
@@ -816,8 +863,8 @@ def check_quad_kernels(inputs, device, say, gen):
                            q * 4 * c * 24),
             # the library's backward needs its forward: forward + backward less the forward
             library_ms=max(lib_bwd_ms - lib_fwd_ms, 0.0),
-            library_device_fn=library_fwd_bwd,
-            library_device_less_fn=library_fwd,
+            library_device_fn=(library_fwd_bwd, None),
+            library_device_less_fn=(library_fwd, None),
         ),
     }
 
@@ -964,7 +1011,9 @@ def run(device="cuda", height=512, width=512, n_tri=200, smi_line=None):
     # 6. kernels line: one record per kernel and main path that launches it (the raster kernels
     # run on all four, with 3 attribute planes on the bench scene and 7 on the duck), with the device
     # times of every kernel and yardstick measured in one profiler session
-    fns = {(id(m), f): m[f] for per_kernel in measured.values() for m in per_kernel.values()
+    # key → (function, the hand kernel it launches): a wrapper launches the kernel of its name
+    fns = {(id(m), f): (m[f], f"{name}_kernel") if f == "device_fn" else m[f]
+           for per_kernel in measured.values() for name, m in per_kernel.items()
            for f in ("device_fn", "library_device_fn", "library_device_less_fn") if f in m}
     t0 = time.perf_counter()
     times = device_times(fns, device)
@@ -975,7 +1024,8 @@ def run(device="cuda", height=512, width=512, n_tri=200, smi_line=None):
 
     # a redesigned wrapper launches its kernel and nothing else (edge_tex_bwd: and g_texture's zero-fill)
     for path_name, per_kernel in measured.items():
-        for name, expected in (("raster_bwd", 1), ("quad_blend_bwd", 1), ("edge_bwd", 1), ("edge_tex_bwd", 2)):
+        for name, expected in (("raster_fwd", 1), ("raster_bwd", 1), ("edge_fwd", 1), ("quad_blend_bwd", 1),
+                               ("edge_bwd", 1), ("edge_tex_bwd", 2)):
             if name in per_kernel:
                 n_ops = times[(id(per_kernel[name]), "device_fn")][1]
                 say(f"{name} on {path_name}: {'not measured' if n_ops is None else f'{n_ops:g}'} device operations "

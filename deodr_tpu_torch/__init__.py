@@ -7,18 +7,11 @@ shade and texture, with the per-pixel
 loops of the tiled solid and edge passes in hand-written CUDA kernels
 (``csrc/``). Entry points run where the scene's tensors live; scenes are
 made on ``cuda`` unless the caller asks for the CPU, where every kernel
-runs its plain PyTorch version.
-
-Float32 products must not run in TF32, which keeps about three decimal
-digits: the package states PyTorch's TF32 switches off.
+runs its plain PyTorch version. The package sets none of PyTorch's global
+switches.
 """
-
-import torch
 
 from deodr_tpu_torch.ops.render import SceneBuffers, render_scene, scene_buffers_from_numpy
 from deodr_tpu_torch.ops.tiled import EdgeTexPlan, TilingConfig, suggest_tiling
-
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
 
 __all__ = ["EdgeTexPlan", "SceneBuffers", "TilingConfig", "render_scene", "scene_buffers_from_numpy", "suggest_tiling"]

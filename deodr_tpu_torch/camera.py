@@ -19,11 +19,13 @@ def project_points_arrays(extrinsic, intrinsic, distortion, points_3d):
     y = row) and depths (N,).
 
     extrinsic (3, 4), intrinsic (3, 3) and distortion (None or (5,):
-    k1, k2, p1, p2, k3) are tensors of the points' dtype and device.
+    k1, k2, p1, p2, k3) are tensors of the points' dtype and device. The two
+    matrix products are written as a broadcast multiply and a sum, so they
+    run in the points' own precision whatever PyTorch's TF32 switches say.
     """
     r = extrinsic[:3, :3]
     t = extrinsic[:3, 3]
-    p_camera = points_3d @ r.T + t
+    p_camera = (points_3d[:, None, :] * r).sum(-1) + t
     depths = p_camera[:, 2]
     projected = p_camera[:, :2] / depths[:, None]
     if distortion is not None:
@@ -37,7 +39,7 @@ def project_points_arrays(extrinsic, intrinsic, distortion, points_3d):
         tang_x = 2 * p1 * x * y + p2 * (r2 + 2 * x2)
         tang_y = p1 * (r2 + 2 * y2) + 2 * p2 * x * y
         projected = torch.stack((x * radial + tang_x, y * radial + tang_y), dim=1)
-    ij = projected @ intrinsic[:2, :2].T + intrinsic[:2, 2]
+    ij = (projected[:, None, :] * intrinsic[:2, :2]).sum(-1) + intrinsic[:2, 2]
     return ij, depths
 
 

@@ -2,6 +2,7 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cfloat>
@@ -74,6 +75,22 @@ __device__ __forceinline__ bool band_mask(const T* r, T x, T y, T zb, T& t) {
   cov = cov && y >= r[19] && y <= r[20];
   const T z = plane3(r + 21 + 3 * C, x, y);
   const bool mask = cov && (z < zb) && (r[24 + 3 * C] > (T)0.5) && isfinite(t);
+  if (!mask) t = (T)0.5;
+  return mask;
+}
+
+// band_mask for the forward kernels, the same tests in the same operation
+// order: every test is evaluated and the results are combined with bitwise
+// ands, so that a slot's shared-memory loads and planes issue together
+// instead of as a chain of branches, each waiting on its own load.
+template <typename T, int C>
+__device__ __forceinline__ bool band_mask_flat(const T* r, T x, T y, T zb, T& t) {
+  t = plane3(r + 16, x, y);
+  bool cov = (y >= r[19]) & (y <= r[20]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) cov &= plane3(r + 3 * i, x, y) > r[12 + i];
+  const T z = plane3(r + 21 + 3 * C, x, y);
+  const bool mask = cov & (z < zb) & (r[24 + 3 * C] > (T)0.5) & isfinite(t);
   if (!mask) t = (T)0.5;
   return mask;
 }
@@ -177,11 +194,11 @@ cudaError_t reserve_smem(K kernel, size_t bytes) {
 // in order; the tile's cluster sums its blocks in rank order.
 
 // The warp regions of a tile at p pixels a lane: rp is the largest divisor
-// of p that the tile's rows of patches hold. edge_bwd_launch_shape in
-// ops/kernels/edge_kernel.py counts them the same way.
+// of p that the tile's rows of patches hold. warp_regions in
+// ops/kernels/__init__.py counts them the same way.
 struct Regions {
   int p, rp, cp, cols, count;
-  __device__ Regions(int tile_h, int tile_w, int pixels) : p(pixels) {
+  __host__ __device__ Regions(int tile_h, int tile_w, int pixels) : p(pixels) {
     const int patch_cols = (tile_w + 15) / 16, patch_rows = (tile_h + 1) / 2;
     rp = p;
     while (rp > 1 && (p % rp != 0 || rp > patch_rows)) --rp;
@@ -273,6 +290,14 @@ __device__ __forceinline__ int pop_highest(unsigned long long& bits) {
   if (bits == 0) return -1;
   const int k = 63 - __clzll(bits);
   bits &= ~(1ull << k);
+  return k;
+}
+
+// The lowest slot left in `bits`, removed from them; −1 when none is.
+__device__ __forceinline__ int pop_lowest(unsigned long long& bits) {
+  if (bits == 0) return -1;
+  const int k = __ffsll((long long)bits) - 1;
+  bits &= bits - 1;
   return k;
 }
 
@@ -505,6 +530,104 @@ cudaError_t launch_tile_clusters(K kernel, int n_tiles, int threads, int blocks_
   err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// ---- the forward frame shared by the raster and edge forward kernels ----
+//
+// A warp owns a region of its tile, laid out as in the backward frame (its
+// lanes a 16 × 2 patch, each lane P pixels in as many patches); a tile's
+// regions are spread over blocks_per_tile independent blocks of a 1-D grid.
+// The block stages its tile's rows in shared memory 64 at a time, with
+// asynchronous copies (every copy of a chunk in flight at once; the next
+// chunk's copies are issued before the current one is walked). Per chunk,
+// each lane tests slots lane and lane + 32 against its warp's region
+// rectangle, two ballots give the chunk's 64-bit mask, and the warp walks its
+// set bits in ascending slot order (the painter's order of the edge pass and
+// the tie order of the solid pass), every lane reading the same row (a
+// shared-memory broadcast) and testing its own pixels against it. There is
+// no reduction: each lane keeps its pixels' state in registers and stores it
+// at the end.
+
+constexpr int kFwdChunk = 64;  // table rows a forward kernel walks at a time (two chunks are staged)
+
+// Launch shape of a forward kernel at `pixels` pixels a lane: 256 threads a
+// block (fewer on a tile of fewer regions) and as many blocks a tile as its
+// regions need. fwd_launch_shape in ops/kernels/__init__.py computes the
+// same; the launchers refuse any other.
+struct FwdShape {
+  int threads, blocks_per_tile;
+};
+
+__host__ __device__ inline FwdShape fwd_shape(int tile_h, int tile_w, int pixels) {
+  const Regions g(tile_h, tile_w, pixels);
+  const int warps = g.count > 1 ? g.count : 1;
+  const int threads = 32 * warps < kThreads ? 32 * warps : kThreads;
+  return {threads, (32 * warps + threads - 1) / threads};
+}
+
+// Whether a launch of a forward kernel over rows of `row_bytes` is the one
+// fwd_shape gives at the kernel's `pixels` a lane, with two chunks of rows
+// as its dynamic shared memory.
+inline bool fwd_shape_ok(int tile_h, int tile_w, int threads, int blocks_per_tile, int pixels, size_t smem_bytes,
+                         size_t row_bytes) {
+  const FwdShape s = fwd_shape(tile_h, tile_w, pixels);
+  return threads == s.threads && blocks_per_tile == s.blocks_per_tile && smem_bytes == 2 * kFwdChunk * row_bytes;
+}
+
+// This warp's tile and region in a forward launch, and whether the region
+// lies in the tile (a tile's last block may have warps beyond its regions).
+struct FwdWarp {
+  int tile, region;
+  bool valid;
+  Regions g;
+  __device__ FwdWarp(int blocks_per_tile, int tile_h, int tile_w, int pixels)
+      : tile(blockIdx.x / blocks_per_tile),
+        region((blockIdx.x % blocks_per_tile) * (blockDim.x / 32) + threadIdx.x / 32),
+        g(tile_h, tile_w, pixels) {
+    valid = region < g.count;
+  }
+};
+
+// Starts the asynchronous copy of rows [base, min(base + 64, count)) (width
+// W) into dst, as one commit group of this thread.
+template <typename T, int W>
+__device__ __forceinline__ void fwd_stage(T* dst, const T* __restrict__ tile_rows, int base, int count) {
+  const int n = min(kFwdChunk, count - base) * W;
+  const T* src = tile_rows + (size_t)base * W;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) __pipeline_memcpy_async(dst + i, src + i, sizeof(T));
+  __pipeline_commit();
+}
+
+// The chunks of a tile's `count` rows (width W, from tile_rows): stages each
+// in shared memory, then, in warps whose region is valid, calls
+// visit(row, slot) for every slot whose row may_cover(row) keeps, in
+// ascending order. Every thread of the block must call it.
+template <typename T, int W, typename MayCover, typename Visit>
+__device__ __forceinline__ void fwd_chunks(const T* __restrict__ tile_rows, int count, bool valid,
+                                           const MayCover& may_cover, const Visit& visit) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* rows = reinterpret_cast<T*>(smem_raw);  // 2 × kFwdChunk × W: chunk c in buffer c & 1
+  const int lane = threadIdx.x & 31;
+  if (count > 0) fwd_stage<T, W>(rows, tile_rows, 0, count);
+  for (int base = 0, c = 0; base < count; base += kFwdChunk, ++c) {
+    const T* chunk = rows + (c & 1) * kFwdChunk * W;
+    if (base + kFwdChunk < count) {  // the next chunk's copies fly while this one is walked
+      fwd_stage<T, W>(rows + ((c + 1) & 1) * kFwdChunk * W, tile_rows, base + kFwdChunk, count);
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();  // the chunk is in place
+    if (valid) {      // warp-uniform
+      const int n = min(kFwdChunk, count - base);
+      const bool lo = lane < n && may_cover(chunk + lane * W);
+      const bool hi = lane + 32 < n && may_cover(chunk + (lane + 32) * W);
+      unsigned long long bits = (unsigned long long)__ballot_sync(kFullMask, lo) |
+                                ((unsigned long long)__ballot_sync(kFullMask, hi) << 32);
+      for (int k = pop_lowest(bits); k >= 0; k = pop_lowest(bits)) visit(chunk + k * W, base + k);
+    }
+    __syncthreads();  // no warp reads the chunk's buffer when the chunk after next is staged into it
+  }
 }
 
 }  // namespace deodr

@@ -4,20 +4,31 @@
 // Replaces deodr_tpu/ops/pallas/edge_kernel.py: _fwd_kernel (called by
 // _edge_fwd_call) and _bwd_kernel (called by _edge_bwd).
 //
-// What bounds it on the H100. Each pixel visits every edge band binned to
-// its tile: ~40 float operations per visit in image mode with C = 3 (four
-// band planes, y range, depth plane, transparency plane, C colour planes
-// and the blend), more in the backward (the un-blend divides once per
-// visit and three moments per gradient quantity are reduced). Bytes are a
-// handful of planes per pixel (buffer in and out, z-buffer, observation in
-// error mode). At the bench scene that makes it bound by operations, as the
-// solid pass is. The backward adds a reduction across the pixels of a tile
-// for every slot, which on a GPU means cross-thread sums and atomics.
+// What bounds it on the H100. A band covers few of its tile's pixels: its
+// clip planes and y range hold at 0.5 % of the (pixel, slot) pairs of the
+// bench scene (edge_kernel.covered_visits), each ~40 float operations in
+// image mode with C = 3 (four band planes, y range, depth plane,
+// transparency plane, C colour planes and the blend), more in the backward
+// (the un-blend divides once per visit and three moments per gradient
+// quantity are reduced). Bytes are a handful of planes per pixel (buffer in
+// and out, z-buffer, observation in error mode), so the work is bound by
+// bytes; the backward adds a reduction across the pixels of a tile for
+// every slot, which on a GPU means cross-thread sums or atomics.
 //
-// The forward (first design). One thread per pixel, a block of 256 pixels
-// of one tile; the tile's edge rows are staged in shared memory 32 slots at
-// a time and every thread walks them in painter's order, keeping its C
-// colour planes (or its one residual plane) in registers.
+// The forward. Its first design had one thread per pixel in blocks of 256
+// and every pixel tested every band of its tile, staged 32 at a time:
+// 0.0320 ms of device time on the bench scene (NVIDIA H100 80GB HBM3,
+// 700 W), 14× its bound. This design runs on the forward frame of
+// common.cuh (fwd_chunks), as the raster forward does: a warp owns a region
+// (16 × 2 patches, P = kEdgeFwdPixels = 2 pixels a lane),
+// tests a staged 64-row chunk's bands against the region's rectangle two a
+// lane (band_may_cover, the backward's exact cull) and walks the kept ones
+// in painter's order, each lane holding its pixels' C colour planes (or one
+// residual plane), z-buffer and observations in registers; the band test
+// of a kept slot is evaluated without branches (band_mask_flat). Measured
+// (chip_smoke.py, same card, float32, device time per call): 0.0075 ms on
+// the bench scene (bound 0.0023); built for 1 and 4 pixels a lane
+// instead, it took 0.0083 and 0.0097 ms.
 //
 // The backward. Its first design had the forward's grid and reduced each
 // slot's 3·(1 + C) moments inside the slot loop with 5 shuffles per value
@@ -46,48 +57,60 @@
 
 namespace deodr {
 
+constexpr int kEdgeFwdPixels = 2;  // P, a lane's pixels in the forward: EDGE_FWD_PIXELS in edge_kernel.py
+
 template <typename T, int C, bool kErr>
 __global__ void __launch_bounds__(kThreads)
     edge_fwd_kernel(const T* __restrict__ table, const int* __restrict__ counts, const T* __restrict__ zbuf,
                     const T* __restrict__ obs, const T* __restrict__ buf_in, int n_tx, int tile_h, int tile_w, int cap,
-                    T* __restrict__ buf_out) {
+                    int blocks_per_tile, T* __restrict__ buf_out) {
   constexpr int W = 25 + 3 * C;
   constexpr int NCH = kErr ? 1 : C;
-  __shared__ T rows[kEdgeChunk * W];
-  const int tile = blockIdx.x;
-  const Pixel px = pixel_of(tile, n_tx, tile_h, tile_w);
-  const size_t plane = (size_t)gridDim.x * tile_h * tile_w;
-  const T x = (T)px.x, y = (T)px.y;
-  const int count = min(counts[tile], cap);
+  constexpr int P = kEdgeFwdPixels;
+  const FwdWarp w(blocks_per_tile, tile_h, tile_w, P);
+  const size_t plane = (size_t)(gridDim.x / blocks_per_tile) * tile_h * tile_w;
+  const int count = min(counts[w.tile], cap);
 
-  T buf[NCH], ob[C];
-  T zb = (T)0;
+  // a lane's P pixels: position, offset, z-buffer, buffer and, in error mode, observation
+  unsigned inside = 0;
+  T x[P], y[P], zb[P], buf[P][NCH], ob[P][C];
+  size_t offset[P];
 #pragma unroll
-  for (int ch = 0; ch < NCH; ++ch) buf[ch] = px.inside ? buf_in[ch * plane + px.offset] : (T)0;
+  for (int j = 0; j < P; ++j) {
+    const Pixel p = region_pixel(w.tile, w.g, w.region, j, n_tx, tile_h, tile_w);
+    inside |= (unsigned)p.inside << j;
+    offset[j] = p.offset;
+    x[j] = (T)p.x;
+    y[j] = (T)p.y;
+    // read whether or not the tile has slots: the loads do not wait for its count
+    zb[j] = p.inside ? zbuf[p.offset] : (T)0;
 #pragma unroll
-  for (int ch = 0; ch < C; ++ch) ob[ch] = (kErr && px.inside) ? obs[ch * plane + px.offset] : (T)0;
-  if (px.inside) zb = zbuf[px.offset];
-
-  const T* tile_rows = table + (size_t)tile * cap * W;
-  for (int base = 0; base < count; base += kEdgeChunk) {
-    const int n = min(kEdgeChunk, count - base);
-    __syncthreads();
-    for (int i = threadIdx.x; i < n * W; i += blockDim.x) rows[i] = tile_rows[(size_t)base * W + i];
-    __syncthreads();
-    if (!px.inside) continue;
-    for (int k = 0; k < n; ++k) {
-      const T* r = rows + k * W;
-      T t;
-      if (!band_mask<T, C>(r, x, y, zb, t)) continue;
-      T a[C];
+    for (int ch = 0; ch < NCH; ++ch) buf[j][ch] = p.inside ? buf_in[ch * plane + p.offset] : (T)0;
 #pragma unroll
-      for (int ch = 0; ch < C; ++ch) a[ch] = plane3(r + 21 + 3 * ch, x, y);
-      blend<T, C, kErr>(a, ob, t, buf);
-    }
+    for (int ch = 0; ch < C; ++ch) ob[j][ch] = (kErr && p.inside) ? obs[ch * plane + p.offset] : (T)0;
   }
-  if (!px.inside) return;
+  T rect[4];
+  region_rect(w.tile, w.g, w.region, n_tx, tile_h, tile_w, rect);
+  fwd_chunks<T, W>(
+      table + (size_t)w.tile * cap * W, count, w.valid,
+      [&](const T* r) { return band_may_cover(r, rect[0], rect[1], rect[2], rect[3]); },
+      [&](const T* r, int) {
 #pragma unroll
-  for (int ch = 0; ch < NCH; ++ch) buf_out[ch * plane + px.offset] = buf[ch];
+        for (int j = 0; j < P; ++j) {
+          T t;
+          if (!((inside >> j) & 1u) || !band_mask_flat<T, C>(r, x[j], y[j], zb[j], t)) continue;
+          T a[C];
+#pragma unroll
+          for (int ch = 0; ch < C; ++ch) a[ch] = plane3(r + 21 + 3 * ch, x[j], y[j]);
+          blend<T, C, kErr>(a, ob[j], t, buf[j]);
+        }
+      });
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    if (!((inside >> j) & 1u)) continue;
+#pragma unroll
+    for (int ch = 0; ch < NCH; ++ch) buf_out[ch * plane + offset[j]] = buf[j][ch];
+  }
 }
 
 // Pixels a lane of the backward kernel holds at most (edge_bwd_launch_shape
@@ -133,14 +156,17 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 3 : 1)
 }
 
 template <typename T, int C>
-static void edge_fwd_c(bool err, dim3 grid, cudaStream_t s, const T* table, const int* counts, const T* zbuf,
-                       const T* obs, const T* buf_in, int n_tx, int tile_h, int tile_w, int cap, T* buf_out) {
-  if (err)
-    edge_fwd_kernel<T, C, true><<<grid, kThreads, 0, s>>>(table, counts, zbuf, obs, buf_in, n_tx, tile_h, tile_w,
-                                                           cap, buf_out);
-  else
-    edge_fwd_kernel<T, C, false><<<grid, kThreads, 0, s>>>(table, counts, zbuf, obs, buf_in, n_tx, tile_h, tile_w,
-                                                            cap, buf_out);
+static cudaError_t edge_fwd_c(bool err, int n_tiles, int threads, int blocks_per_tile, size_t smem_bytes,
+                              cudaStream_t s, const T* table, const int* counts, const T* zbuf, const T* obs,
+                              const T* buf_in, int n_tx, int tile_h, int tile_w, int cap, T* buf_out) {
+  if (!fwd_shape_ok(tile_h, tile_w, threads, blocks_per_tile, kEdgeFwdPixels, smem_bytes, (25 + 3 * C) * sizeof(T)))
+    return cudaErrorInvalidValue;
+  auto go = [&](auto kernel) {
+    kernel<<<n_tiles * blocks_per_tile, threads, smem_bytes, s>>>(table, counts, zbuf, obs, buf_in, n_tx, tile_h,
+                                                                  tile_w, cap, blocks_per_tile, buf_out);
+    return cudaGetLastError();
+  };
+  return err ? go(edge_fwd_kernel<T, C, true>) : go(edge_fwd_kernel<T, C, false>);
 }
 
 template <typename T, int C>
@@ -161,23 +187,21 @@ static cudaError_t edge_bwd_c(bool err, int n_tiles, int threads, int blocks_per
 template <typename T>
 static int edge_fwd_launch(const void* table, const void* counts, const void* zbuf, const void* obs,
                            const void* buf_in, int n_tiles, int n_tx, int tile_h, int tile_w, int cap, int c, int err,
-                           void* buf_out, void* stream) {
-  const int n_px = tile_h * tile_w;
-  if (n_tiles == 0 || n_px == 0) return 0;
-  const dim3 grid(n_tiles, (n_px + kThreads - 1) / kThreads);
+                           int threads, int blocks_per_tile, int smem_bytes, void* buf_out, void* stream) {
+  if (n_tiles == 0 || tile_h * tile_w == 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
   auto args = [&](auto launch) {
-    launch(err != 0, grid, s, (const T*)table, (const int*)counts, (const T*)zbuf, (const T*)obs, (const T*)buf_in,
-           n_tx, tile_h, tile_w, cap, (T*)buf_out);
+    return (int)launch(err != 0, n_tiles, threads, blocks_per_tile, (size_t)smem_bytes, s, (const T*)table,
+                       (const int*)counts, (const T*)zbuf, (const T*)obs, (const T*)buf_in, n_tx, tile_h, tile_w,
+                       cap, (T*)buf_out);
   };
   switch (c) {
-    case 1: args(edge_fwd_c<T, 1>); break;
-    case 2: args(edge_fwd_c<T, 2>); break;
-    case 3: args(edge_fwd_c<T, 3>); break;
-    case 4: args(edge_fwd_c<T, 4>); break;
+    case 1: return args(edge_fwd_c<T, 1>);
+    case 2: return args(edge_fwd_c<T, 2>);
+    case 3: return args(edge_fwd_c<T, 3>);
+    case 4: return args(edge_fwd_c<T, 4>);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -206,15 +230,17 @@ static int edge_bwd_launch(const void* table, const void* counts, const void* zb
 extern "C" {
 
 int edge_fwd_f32(const void* table, const void* counts, const void* zbuf, const void* obs, const void* buf_in,
-                 int n_tiles, int n_tx, int tile_h, int tile_w, int cap, int c, int err, void* buf_out, void* stream) {
+                 int n_tiles, int n_tx, int tile_h, int tile_w, int cap, int c, int err, int threads,
+                 int blocks_per_tile, int smem_bytes, void* buf_out, void* stream) {
   return deodr::edge_fwd_launch<float>(table, counts, zbuf, obs, buf_in, n_tiles, n_tx, tile_h, tile_w, cap, c, err,
-                                       buf_out, stream);
+                                       threads, blocks_per_tile, smem_bytes, buf_out, stream);
 }
 
 int edge_fwd_f64(const void* table, const void* counts, const void* zbuf, const void* obs, const void* buf_in,
-                 int n_tiles, int n_tx, int tile_h, int tile_w, int cap, int c, int err, void* buf_out, void* stream) {
+                 int n_tiles, int n_tx, int tile_h, int tile_w, int cap, int c, int err, int threads,
+                 int blocks_per_tile, int smem_bytes, void* buf_out, void* stream) {
   return deodr::edge_fwd_launch<double>(table, counts, zbuf, obs, buf_in, n_tiles, n_tx, tile_h, tile_w, cap, c, err,
-                                        buf_out, stream);
+                                        threads, blocks_per_tile, smem_bytes, buf_out, stream);
 }
 
 int edge_bwd_f32(const void* table, const void* counts, const void* zbuf, const void* obs, const void* buf_final,

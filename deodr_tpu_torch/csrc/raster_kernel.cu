@@ -5,26 +5,43 @@
 // Replaces deodr_tpu/ops/pallas/raster_kernel.py: _fwd_kernel (called by
 // _raster_fwd_call) and _bwd_kernel (called by _raster_bwd).
 //
-// What bounds it on the H100. Forward: every pixel of a tile visits every
-// slot binned to the tile, ~30 float operations per visit (two sub-triangle
-// coverage tests, bbox, depth plane, compare), and writes 8 + 4·D bytes.
-// At the bench scene (512², 200 triangles, 48×128 tiles, tens of slots per
-// tile) that is a few hundred million operations against a few MB written,
-// so it is bound by operations, far from the memory rate. Backward: reads
-// one slot id and D cotangents per pixel and does 3·D products, bound by
-// bytes (about 10 MB on the duck, 3 µs at 3.35 TB/s); what holds it back is
-// the reduction: many pixels adding into few table entries.
+// What bounds it on the H100. Forward: a slot's triangle covers few of its
+// tile's pixels (1.7 % of the (pixel, slot) pairs on the duck, 7.9 % on the
+// bench scene: raster_kernel.covered_visits), ~33 float operations per
+// covered pair, and every pixel is written once (8 + 4·D bytes), so the
+// work it must do is bound by bytes (11 MB on the duck, 3.5 µs at 3.35
+// TB/s). What holds it back is latency: a launch, a chain of dependent
+// loads (slot count, table rows, the winner's attribute row) and, in the
+// tiles that hold many small triangles, a warp's walk over its slots.
+// Backward: reads one slot id and D cotangents per pixel and does 3·D
+// products, bound by bytes (about 10 MB on the duck, 3 µs at 3.35 TB/s);
+// what holds it back is the reduction: many pixels adding into few table
+// entries.
 //
-// The forward. One thread per pixel, one block of 256 pixels of one tile
-// (grid = tiles × pixel chunks), so a warp covers 32 neighbouring pixels of
-// one row and every load and store is coalesced. It stages the tile's setup
-// rows in shared memory in chunks of 64 slots and keeps only (best z, best
-// slot) in registers over the ascending slot loop; a strict < keeps the
-// lowest slot on ties. The winner's attribute planes are evaluated once
-// after the loop. The file is compiled with -fmad=false, so each plane
-// rounds like the plain PyTorch version, and without fast math, so the
-// right-edge test "plane > -FLT_MIN" sees denormals. Slot pairing, the
-// TPU's latency device, is not needed here.
+// The forward. Its first design had one thread per pixel in blocks of 256
+// (grid = tiles × pixel chunks), and every pixel tested every slot of its
+// tile: 0.0375 ms of device time on the duck, 0.0139 on the bench scene
+// (NVIDIA H100 80GB HBM3, 700 W). This design runs on the forward frame of
+// common.cuh (fwd_chunks): a warp owns a region of its tile (16 × 2
+// patches, P = kRasterFwdPixels = 1 pixel a lane), tests a
+// staged 64-row chunk's slots against the region's rectangle two a lane
+// (raster_may_cover, exact), and walks only the kept slots (7 % of the
+// (region, slot) pairs on the duck) in ascending order, keeping (best z,
+// best slot) per pixel; a strict < keeps the lowest slot on ties. The
+// tests are evaluated without branches (raster_covers): written with
+// short-circuit ands they compiled to a chain of branches, each waiting on
+// its own shared-memory load, and the walk of the warps of the duck's
+// fullest tiles set the kernel's time (0.0180 ms, against 0.0109 without
+// the branches; chip_smoke.py, same card). The winner's
+// attribute planes are evaluated once at the end, four at a time with
+// every load of a batch in flight. The file is compiled with -fmad=false,
+// so each plane rounds like the plain PyTorch version, and without fast
+// math, so the right-edge test "plane > -FLT_MIN" sees denormals. Slot
+// pairing, the TPU's latency device, is not needed here. Measured
+// (chip_smoke.py, same card, float32, device time per call): 0.0109 ms on
+// the duck (bound 0.0035), 0.0077 on the bench scene (bound 0.0016); built
+// for 2 and 4 pixels a lane instead, it took 0.0120 and 0.0169 ms on the
+// duck, 0.0070 and 0.0063 on the bench scene.
 //
 // The backward. Its first design had the forward's grid: each 256-pixel
 // block zeroed and flushed a count × 3D shared accumulator for its whole
@@ -63,57 +80,125 @@
 namespace deodr {
 
 constexpr int kSetupW = 22;  // setup row width (see raster_kernel.py)
-constexpr int kChunk = 64;   // setup rows staged in shared memory at a time
+
+// Coverage and depth of setup row r at pixel (x, y), in the plain PyTorch
+// version's operation order: inside one of the two sub-triangles (y range,
+// left plane > 0, right plane > −tiny), inside the x range, a valid row and
+// a finite depth. Every test is evaluated and the results are combined with
+// bitwise ands: short-circuit evaluation compiles to a chain of branches,
+// each waiting on its own shared-memory load, which set the walk's pace.
+template <typename T>
+__device__ __forceinline__ bool raster_covers(const T* r, T x, T y, T& z) {
+  const T neg_tiny = -Limits<T>::tiny();
+  bool cov = false;
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    cov |= (y >= r[p]) & (y <= r[2 + p]) & (plane3(r + 4 + 3 * p, x, y) > (T)0) &
+           (plane3(r + 10 + 3 * p, x, y) > neg_tiny);
+  }
+  z = plane3(r + 18, x, y);
+  return cov & (x >= r[16]) & (x <= r[17]) & (r[21] > (T)0.5) & isfinite(z);
+}
+
+// Whether setup row r may cover a pixel of the rectangle [x0, x1] × [y0, y1]:
+// false only where no pixel there passes raster_covers's validity, x-range,
+// y-range and edge-plane tests. Exact, as band_may_cover is: the rectangle
+// is clipped to the row's x range and to each sub-triangle's y range (a
+// pixel that passes lies inside both), and each edge plane is evaluated as
+// raster_covers evaluates it, at the clipped rectangle's corner that
+// maximises it; NaN culls, as it fails. Evaluated without branches, as
+// raster_covers is.
+template <typename T>
+__device__ __forceinline__ bool raster_may_cover(const T* r, T x0, T x1, T y0, T y1) {
+  const T cx0 = fmax(x0, r[16]), cx1 = fmin(x1, r[17]);
+  const T neg_tiny = -Limits<T>::tiny();
+  bool may = false;
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const T cy0 = fmax(y0, r[p]), cy1 = fmin(y1, r[2 + p]);
+    const T* le = r + 4 + 3 * p;
+    const T* re = r + 10 + 3 * p;
+    may |= (y1 >= r[p]) & (y0 <= r[2 + p]) &
+           (plane3(le, le[0] >= (T)0 ? cx1 : cx0, le[1] >= (T)0 ? cy1 : cy0) > (T)0) &
+           (plane3(re, re[0] >= (T)0 ? cx1 : cx0, re[1] >= (T)0 ? cy1 : cy0) > neg_tiny);
+  }
+  return may & (r[21] > (T)0.5) & (x1 >= r[16]) & (x0 <= r[17]);
+}
+
+// The forward, on the frame of common.cuh (fwd_chunks): a lane keeps (best
+// z, best slot) of each of its P pixels over the slots its warp's region
+// may be covered by, in ascending order; a strict < keeps the lowest slot
+// on ties. The winner's D attribute planes are evaluated once at the end.
+constexpr int kRasterFwdPixels = 1;  // P, a lane's pixels: RASTER_FWD_PIXELS in raster_kernel.py
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     raster_fwd_kernel(const T* __restrict__ setup, const T* __restrict__ affine, const int* __restrict__ counts,
-                      int n_tx, int tile_h, int tile_w, int cap, int d, int* __restrict__ slot_map,
+                      int n_tx, int tile_h, int tile_w, int cap, int d, int blocks_per_tile, int* __restrict__ slot_map,
                       T* __restrict__ z_out, T* __restrict__ vals) {
-  __shared__ T rows[kChunk * kSetupW];
-  const int tile = blockIdx.x;
-  const Pixel px = pixel_of(tile, n_tx, tile_h, tile_w);
-  const T x = (T)px.x, y = (T)px.y;
-  const int count = min(counts[tile], cap);
-  const T neg_tiny = -Limits<T>::tiny();
-  const T* tile_setup = setup + (size_t)tile * cap * kSetupW;
-
-  T best_z = (T)INFINITY;
-  int best = cap;
-  for (int base = 0; base < count; base += kChunk) {
-    const int n = min(kChunk, count - base);
-    __syncthreads();
-    for (int i = threadIdx.x; i < n * kSetupW; i += blockDim.x) rows[i] = tile_setup[(size_t)base * kSetupW + i];
-    __syncthreads();
-    for (int k = 0; k < n; ++k) {
-      const T* r = rows + k * kSetupW;
-      bool cov = false;
+  constexpr int P = kRasterFwdPixels;
+  const FwdWarp w(blocks_per_tile, tile_h, tile_w, P);
+  const int count = min(counts[w.tile], cap);
+  T x[P], y[P], best_z[P];
+  int best[P];
 #pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        const T* le = r + 4 + 3 * p;
-        const T* re = r + 10 + 3 * p;
-        const bool row_ok = (y >= r[p]) && (y <= r[2 + p]);
-        const T plane_l = le[0] * x + (le[1] * y + le[2]);
-        const T plane_r = re[0] * x + (re[1] * y + re[2]);
-        cov = cov || (row_ok && plane_l > (T)0 && plane_r > neg_tiny);
-      }
-      cov = cov && x >= r[16] && x <= r[17];
-      const T z = r[18] * x + (r[19] * y + r[20]);
-      cov = cov && r[21] > (T)0.5 && isfinite(z);
-      if (cov && z < best_z) {
-        best_z = z;
-        best = base + k;
+  for (int j = 0; j < P; ++j) {
+    const Pixel p = region_pixel(w.tile, w.g, w.region, j, n_tx, tile_h, tile_w);
+    x[j] = (T)p.x;
+    y[j] = (T)p.y;
+    best_z[j] = (T)INFINITY;
+    best[j] = cap;
+  }
+  T rect[4];
+  region_rect(w.tile, w.g, w.region, n_tx, tile_h, tile_w, rect);
+  fwd_chunks<T, kSetupW>(
+      setup + (size_t)w.tile * cap * kSetupW, count, w.valid,
+      [&](const T* r) { return raster_may_cover(r, rect[0], rect[1], rect[2], rect[3]); },
+      [&](const T* r, int slot) {
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+          T z;
+          if (raster_covers(r, x[j], y[j], z) && z < best_z[j]) {
+            best_z[j] = z;
+            best[j] = slot;
+          }
+        }
+      });
+  const size_t plane = (size_t)(gridDim.x / blocks_per_tile) * tile_h * tile_w;
+  size_t offset[P];
+  unsigned inside = 0;
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const Pixel p = region_pixel(w.tile, w.g, w.region, j, n_tx, tile_h, tile_w);
+    inside |= (unsigned)p.inside << j;
+    offset[j] = p.offset;
+    if (!p.inside) continue;
+    slot_map[p.offset] = best[j];
+    z_out[p.offset] = best_z[j];
+  }
+  // the winners' attribute planes, kAttrBatch at a time: every load of a batch in flight before its stores
+  constexpr int kAttrBatch = 4;
+  for (int k0 = 0; k0 < d; k0 += kAttrBatch) {
+    T a[P][kAttrBatch][3];
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const bool hit = ((inside >> j) & 1u) && best[j] < cap;
+      const T* row = affine + ((size_t)w.tile * cap + (hit ? best[j] : 0)) * 3 * d;
+#pragma unroll
+      for (int q = 0; q < kAttrBatch; ++q) {
+        const int k = k0 + q;
+#pragma unroll
+        for (int m = 0; m < 3; ++m) a[j][q][m] = (hit && k < d) ? row[m * d + k] : (T)0;
       }
     }
-  }
-  if (!px.inside) return;
-  const size_t plane = (size_t)gridDim.x * tile_h * tile_w;
-  slot_map[px.offset] = best;
-  z_out[px.offset] = best_z;
-  const bool hit = best < cap;
-  const T* a = affine + ((size_t)tile * cap + (hit ? best : 0)) * 3 * d;
-  for (int j = 0; j < d; ++j) {
-    vals[j * plane + px.offset] = hit ? a[j] * x + (a[d + j] * y + a[2 * d + j]) : (T)0;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      if (!((inside >> j) & 1u)) continue;
+#pragma unroll
+      for (int q = 0; q < kAttrBatch; ++q) {
+        if (k0 + q < d) vals[(k0 + q) * plane + offset[j]] = a[j][q][0] * x[j] + (a[j][q][1] * y[j] + a[j][q][2]);
+      }
+    }
   }
 }
 
@@ -209,14 +294,15 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T>
 static int raster_fwd_launch(const void* setup, const void* affine, const void* counts, int n_tiles, int n_tx,
-                             int tile_h, int tile_w, int cap, int d, void* slot_map, void* z, void* vals,
-                             void* stream) {
-  const int n_px = tile_h * tile_w;
-  if (n_tiles == 0 || n_px == 0) return 0;
-  const dim3 grid(n_tiles, (n_px + kThreads - 1) / kThreads);
-  raster_fwd_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)setup, (const T*)affine, (const int*)counts, n_tx, tile_h, tile_w, cap, d, (int*)slot_map, (T*)z,
-      (T*)vals);
+                             int tile_h, int tile_w, int cap, int d, int threads, int blocks_per_tile, int smem_bytes,
+                             void* slot_map, void* z, void* vals, void* stream) {
+  if (n_tiles == 0 || tile_h * tile_w == 0) return 0;
+  if (!fwd_shape_ok(tile_h, tile_w, threads, blocks_per_tile, kRasterFwdPixels, (size_t)smem_bytes,
+                    kSetupW * sizeof(T)))
+    return (int)cudaErrorInvalidValue;
+  raster_fwd_kernel<T><<<n_tiles * blocks_per_tile, threads, smem_bytes, (cudaStream_t)stream>>>(
+      (const T*)setup, (const T*)affine, (const int*)counts, n_tx, tile_h, tile_w, cap, d, blocks_per_tile,
+      (int*)slot_map, (T*)z, (T*)vals);
   return (int)cudaGetLastError();
 }
 
@@ -238,15 +324,17 @@ extern "C" {
 const char* deodr_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 int raster_fwd_f32(const void* setup, const void* affine, const void* counts, int n_tiles, int n_tx, int tile_h,
-                   int tile_w, int cap, int d, void* slot_map, void* z, void* vals, void* stream) {
-  return deodr::raster_fwd_launch<float>(setup, affine, counts, n_tiles, n_tx, tile_h, tile_w, cap, d, slot_map, z,
-                                         vals, stream);
+                   int tile_w, int cap, int d, int threads, int blocks_per_tile, int smem_bytes, void* slot_map,
+                   void* z, void* vals, void* stream) {
+  return deodr::raster_fwd_launch<float>(setup, affine, counts, n_tiles, n_tx, tile_h, tile_w, cap, d, threads,
+                                         blocks_per_tile, smem_bytes, slot_map, z, vals, stream);
 }
 
 int raster_fwd_f64(const void* setup, const void* affine, const void* counts, int n_tiles, int n_tx, int tile_h,
-                   int tile_w, int cap, int d, void* slot_map, void* z, void* vals, void* stream) {
-  return deodr::raster_fwd_launch<double>(setup, affine, counts, n_tiles, n_tx, tile_h, tile_w, cap, d, slot_map, z,
-                                          vals, stream);
+                   int tile_w, int cap, int d, int threads, int blocks_per_tile, int smem_bytes, void* slot_map,
+                   void* z, void* vals, void* stream) {
+  return deodr::raster_fwd_launch<double>(setup, affine, counts, n_tiles, n_tx, tile_h, tile_w, cap, d, threads,
+                                          blocks_per_tile, smem_bytes, slot_map, z, vals, stream);
 }
 
 int raster_bwd_f32(const void* slot_map, const void* g_vals, const void* counts, int n_tiles, int n_tx, int tile_h,

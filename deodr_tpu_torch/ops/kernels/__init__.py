@@ -50,12 +50,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name → argument types (all return cudaError_t as int)
 _SIGNATURES = {
-    # setup, affine, counts, n_tiles, n_tx, tile_h, tile_w, cap, d, slot_map, z, vals, stream
-    "raster_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    # setup, affine, counts, n_tiles, n_tx, tile_h, tile_w, cap, d, threads, blocks_per_tile, smem_bytes,
+    # slot_map, z, vals, stream
+    "raster_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     # slot_map, g_vals, counts, n_tiles, n_tx, tile_h, tile_w, cap, d, threads, blocks_per_tile, g_table, stream
     "raster_bwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
-    # table, counts, zbuf, obs, buf_in, n_tiles, n_tx, tile_h, tile_w, cap, C, err, buf_out, stream
-    "edge_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
+    # table, counts, zbuf, obs, buf_in, n_tiles, n_tx, tile_h, tile_w, cap, C, err,
+    # threads, blocks_per_tile, smem_bytes, buf_out, stream
+    "edge_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     # table, counts, zbuf, obs, buf_final, g_out, n_tiles, n_tx, tile_h, tile_w, cap, C, err,
     # threads, blocks_per_tile, pixels, smem_bytes, g_table, g_buf0, stream
     "edge_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
@@ -187,6 +189,79 @@ def use_kernel(t: torch.Tensor, impl: str) -> bool:
     if t.device.type != "cuda":
         raise ValueError(f"no kernel for device {t.device}")
     return True
+
+
+class WarpRegions(NamedTuple):
+    """The warp regions of a tile, as ``Regions`` in csrc/common.cuh lays
+    them out: a warp's lanes cover a 16 × 2 patch, each lane ``pixels``
+    pixels in as many patches, rp rows × cp columns of them (rp the largest
+    divisor of ``pixels`` that the tile's rows of patches hold); ``cols``
+    regions a row of the tile, ``count`` in all."""
+
+    rp: int
+    cp: int
+    cols: int
+    count: int
+
+
+def warp_regions(tile_h: int, tile_w: int, pixels: int) -> WarpRegions:
+    cols, rows = -(-tile_w // 16), -(-tile_h // 2)
+    rp = max((d for d in range(1, pixels + 1) if pixels % d == 0 and d <= rows), default=1)
+    cp = pixels // rp
+    return WarpRegions(rp, cp, -(-cols // cp), -(-cols // cp) * -(-rows // rp))
+
+
+# the forward kernels' frame (csrc/common.cuh): rows walked per chunk (two
+# chunks are staged) and threads per block
+FWD_CHUNK = 64
+FWD_THREADS = 256
+
+
+class FwdShape(NamedTuple):
+    """Launch shape of a forward kernel (``raster_fwd``, ``edge_fwd``), all
+    of it passed to the kernel's entry point: ``blocks_per_tile``
+    independent blocks of ``threads`` threads a tile, a warp a region of
+    the tile, and ``smem_bytes`` of shared memory for two chunks of table
+    rows (the launcher refuses any other shape)."""
+
+    threads: int
+    blocks_per_tile: int
+    smem_bytes: int
+
+
+def fwd_launch_shape(tile_h: int, tile_w: int, pixels: int, row_width: int, itemsize: int) -> FwdShape:
+    """256 threads a block (fewer on a tile of fewer warp regions) and as
+    many blocks a tile as its regions need at the kernel's ``pixels`` a
+    lane; shared memory for two chunks of 64 rows of ``row_width`` values
+    (one walked while the next is copied in)."""
+    warps = max(1, warp_regions(tile_h, tile_w, pixels).count)
+    threads = min(FWD_THREADS, 32 * warps)
+    return FwdShape(threads, -(-32 * warps // threads), 2 * FWD_CHUNK * row_width * itemsize)
+
+
+def region_rects(grid: "TileGrid", pixels: int, dtype, device):
+    """The rectangle of every warp region of every tile, as ``region_rect``
+    in csrc/common.cuh gives it to a kernel's cull (not clipped to the
+    tile) → x0, x1, y0, y1, each (n_tiles, regions)."""
+    g = warp_regions(grid.tile_h, grid.tile_w, pixels)
+    t = torch.arange(grid.n_tiles, device=device)[:, None]
+    r = torch.arange(g.count, device=device)[None, :]
+    x0 = (t % grid.n_tx) * grid.tile_w + (r % g.cols) * 16 * g.cp
+    y0 = (t // grid.n_tx) * grid.tile_h + (r // g.cols) * 2 * g.rp
+    x1, y1 = x0 + 16 * g.cp - 1, y0 + 2 * g.rp - 1
+    return tuple(v.to(dtype) for v in (x0, x1, y0, y1))
+
+
+def region_cull(may_cover, table_tile, counts, grid: "TileGrid", pixels: int) -> torch.Tensor:
+    """(n_tiles, regions, cap) bool: the (warp region, slot) pairs that a
+    forward kernel's cull keeps at ``pixels`` pixels a lane, given the plain
+    mirror ``may_cover(rows, x0, x1, y0, y1)`` of its test; slots at or
+    above a tile's count are not walked."""
+    cap = table_tile.shape[1]
+    x0, x1, y0, y1 = (v[:, :, None] for v in region_rects(grid, pixels, table_tile.dtype, table_tile.device))
+    keep = may_cover(table_tile[:, None], x0, x1, y0, y1)
+    used = torch.arange(cap, device=table_tile.device)[None, :] < counts.to(torch.int64).clamp(max=cap)[:, None]
+    return keep & used[:, None, :]
 
 
 class TileGrid(NamedTuple):

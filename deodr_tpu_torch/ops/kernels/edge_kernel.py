@@ -51,6 +51,8 @@ MOMENTS = 16
 EDGE_BWD_THREADS = 256
 MAX_CLUSTER = 8
 EDGE_BWD_PIXELS = 3
+# pixels a lane of the forward kernel holds (kEdgeFwdPixels in csrc/edge_kernel.cu)
+EDGE_FWD_PIXELS = 2
 
 
 class EdgeBwdShape(NamedTuple):
@@ -67,15 +69,6 @@ class EdgeBwdShape(NamedTuple):
     blocks_per_tile: int
     pixels_per_thread: int
     smem_bytes: int
-
-
-def _regions(tile_h: int, tile_w: int, pixels: int) -> int:
-    """Warp regions of a tile at ``pixels`` pixels a lane, as ``Regions`` in
-    csrc/common.cuh counts them: rp rows × cp columns of 16 × 2 patches, rp
-    the largest divisor of ``pixels`` that the tile's rows of patches hold."""
-    cols, rows = -(-tile_w // 16), -(-tile_h // 2)
-    rp = max((d for d in range(1, pixels + 1) if pixels % d == 0 and d <= rows), default=1)
-    return -(-cols // (pixels // rp)) * -(-rows // rp)
 
 
 def edge_bwd_launch_shape(tile_h: int, tile_w: int, nb_colors: int, textured: bool, itemsize: int) -> EdgeBwdShape:
@@ -97,9 +90,17 @@ def edge_bwd_launch_shape(tile_h: int, tile_w: int, nb_colors: int, textured: bo
     smem = (EDGE_CHUNK * w + warps * EDGE_CHUNK * MOMENTS + 2 * EDGE_CHUNK * gw) * itemsize
     shapes = [(blocks, pixels) for blocks in range(1, MAX_CLUSTER + 1) for pixels in range(1, EDGE_BWD_PIXELS + 1)]
     for blocks, pixels in sorted(shapes, key=lambda bp: bp[::-1]) if textured else shapes:
-        if _regions(tile_h, tile_w, pixels) <= blocks * warps:
+        if kernels.warp_regions(tile_h, tile_w, pixels).count <= blocks * warps:
             return EdgeBwdShape(threads, blocks, pixels, smem)
     return EdgeBwdShape(threads, MAX_CLUSTER, EDGE_BWD_PIXELS, smem)
+
+
+def edge_fwd_launch_shape(tile_h: int, tile_w: int, nb_colors: int, itemsize: int) -> kernels.FwdShape:
+    """Launch shape of ``edge_fwd`` (:func:`kernels.fwd_launch_shape`): the
+    tile's warp regions at ``EDGE_FWD_PIXELS`` pixels a lane over
+    independent blocks of up to 256 threads, two 64-row chunks of the table
+    in shared memory."""
+    return kernels.fwd_launch_shape(tile_h, tile_w, EDGE_FWD_PIXELS, edge_row_width(nb_colors), itemsize)
 
 
 def edge_row_width(nb_colors: int) -> int:
@@ -152,6 +153,29 @@ def covered_visits(table_tile, counts, grid: TileGrid) -> int:
             cov = cov & (_plane(row, 3 * i, yy, xx) > row[:, _E_TH + i])
         n += cov.sum()
     return int(n)
+
+
+def band_may_cover(rows, x0, x1, y0, y1):
+    """Plain mirror of ``band_may_cover`` (csrc/common.cuh), the edge
+    kernels' region cull: whether a band row may cover a pixel of the
+    rectangle [x0, x1] × [y0, y1], false only where no pixel there passes
+    the y range and the four clip planes. Each plane is evaluated in the
+    kernels' operation order at the rectangle's corner that maximises it.
+    ``rows`` (..., W) broadcasts against the rectangle's bounds (...)."""
+    may = (y1 >= rows[..., _E_YBEG]) & (y0 <= rows[..., _E_YEND])
+    for i in range(4):
+        a, b, c = rows[..., 3 * i], rows[..., 3 * i + 1], rows[..., 3 * i + 2]
+        x = torch.where(a >= 0, x1, x0)
+        y = torch.where(b >= 0, y1, y0)
+        may = may & (a * x + (b * y + c) > rows[..., _E_TH + i])
+    return may
+
+
+def region_cull(table_tile, counts, grid: TileGrid):
+    """(n_tiles, regions, cap) bool: the (warp region, slot) pairs that the
+    forward kernel's cull (:func:`band_may_cover`) keeps. Takes an
+    untextured or a textured table (the same leading columns)."""
+    return kernels.region_cull(band_may_cover, table_tile, counts, grid, EDGE_FWD_PIXELS)
 
 
 def _t_div(t):
@@ -267,17 +291,19 @@ def _check_inputs(table_tile, buf, z_pad, obs_pad, counts, grid, error_mode):
 
 def edge_fwd(table_tile, buffer0, z_pad, obs_pad, counts, grid: TileGrid, error_mode: bool, impl: str = "kernel"):
     """Forward edge pass → blended buffer (nch, H', W'); ``obs_pad``
-    (C, H', W') is read in error mode only (may be None otherwise)."""
+    (C, H', W') is read in error mode only (may be None otherwise). The
+    kernel is launched in the shape of :func:`edge_fwd_launch_shape`."""
     if not kernels.use_kernel(buffer0, impl):
         return edge_fwd_reference(table_tile, buffer0, z_pad, obs_pad, counts, grid, error_mode)
     c, cap = _check_inputs(table_tile, buffer0, z_pad, obs_pad, counts, grid, error_mode)
+    shape = edge_fwd_launch_shape(grid.tile_h, grid.tile_w, c, buffer0.element_size())
     out = torch.empty_like(buffer0)
     kernels.launch(
         "edge_fwd", buffer0.dtype,
         table_tile.data_ptr(), counts.data_ptr(), z_pad.data_ptr(),
         obs_pad.data_ptr() if error_mode else None, buffer0.data_ptr(),
         grid.n_tiles, grid.n_tx, grid.tile_h, grid.tile_w, cap, c, int(error_mode),
-        out.data_ptr(),
+        *shape, out.data_ptr(),
     )
     return out
 

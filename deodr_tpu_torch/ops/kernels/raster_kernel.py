@@ -45,6 +45,8 @@ SETUP_WIDTH = 22
 MAX_SMEM_BYTES = 232_448
 MAX_CLUSTER = 8
 RASTER_BWD_THREADS = 256
+# pixels a lane of the forward kernel holds (kRasterFwdPixels in csrc/raster_kernel.cu)
+RASTER_FWD_PIXELS = 1
 
 
 class RasterBwdShape(NamedTuple):
@@ -73,6 +75,80 @@ def raster_bwd_launch_shape(tile_h: int, tile_w: int, cap: int, d: int, itemsize
     return RasterBwdShape(threads, max(1, min(MAX_CLUSTER, -(-n_px // threads))), smem)
 
 
+def raster_fwd_launch_shape(tile_h: int, tile_w: int, itemsize: int) -> kernels.FwdShape:
+    """Launch shape of the forward kernel (:func:`kernels.fwd_launch_shape`):
+    the tile's warp regions at ``RASTER_FWD_PIXELS`` pixels a lane over
+    independent blocks of up to 256 threads, two 64-row chunks of setup rows
+    in shared memory."""
+    return kernels.fwd_launch_shape(tile_h, tile_w, RASTER_FWD_PIXELS, SETUP_WIDTH, itemsize)
+
+
+def _coverage(row, yy, xx, neg_tiny):
+    """The forward's coverage predicate and depth of setup rows ``row``
+    (..., 22, 1, 1) at pixels (yy, xx), in the kernel's operation order."""
+    def plane(j):
+        return row[..., j, :, :] * xx + (row[..., j + 1, :, :] * yy + row[..., j + 2, :, :])
+
+    cov = None
+    for p in range(2):
+        row_ok = (yy >= row[..., _S_YLO + p, :, :]) & (yy <= row[..., _S_YHI + p, :, :])
+        ok = row_ok & (plane(_S_LEQ + 3 * p) > 0.0) & (plane(_S_REQ + 3 * p) > neg_tiny)
+        cov = ok if cov is None else cov | ok
+    cov = cov & (xx >= row[..., _S_XLO, :, :]) & (xx <= row[..., _S_XHI, :, :])
+    z = plane(_S_Z)
+    return cov & (row[..., _S_VALID, :, :] > 0.5) & torch.isfinite(z), z
+
+
+def covered_visits(setup_tile, counts, grid: TileGrid) -> int:
+    """Number of (pixel, slot) pairs at which a slot's row covers the pixel
+    (the coverage predicate of :func:`raster_fwd_reference`): the pairs whose
+    coverage test has to be made pixel by pixel. Every other pair fails on
+    a rectangle around the pixel too, where the kernel rejects it for many
+    pixels at once."""
+    nt, cap, _ = setup_tile.shape
+    yy, xx = tile_coords(grid, setup_tile.dtype, setup_tile.device)
+    count = counts.to(torch.int64).clamp(max=cap)
+    neg_tiny = -torch.finfo(setup_tile.dtype).tiny
+    n = torch.zeros((), dtype=torch.int64, device=setup_tile.device)
+    for k in range(int(count.max()) if nt else 0):
+        cov, _ = _coverage(setup_tile[:, k, :, None, None], yy, xx, neg_tiny)
+        n += (cov & (k < count)[:, None, None]).sum()
+    return int(n)
+
+
+def raster_may_cover(rows, x0, x1, y0, y1):
+    """Plain mirror of ``raster_may_cover`` (csrc/raster_kernel.cu), the
+    forward kernel's region cull: whether a setup row may cover a pixel of
+    the rectangle [x0, x1] × [y0, y1], false only where no pixel there passes
+    the validity, x-range, y-range and edge-plane tests. The rectangle is
+    clipped to the row's x range and each sub-triangle's y range, and each
+    plane is evaluated in the kernel's operation order at the clipped
+    rectangle's corner that maximises it. ``rows`` (..., 22) broadcasts
+    against the rectangle's bounds (...)."""
+    neg_tiny = -torch.finfo(rows.dtype).tiny
+    x_lo, x_hi = rows[..., _S_XLO], rows[..., _S_XHI]
+    may_row = (rows[..., _S_VALID] > 0.5) & (x1 >= x_lo) & (x0 <= x_hi)
+    cx0, cx1 = torch.fmax(x0, x_lo), torch.fmin(x1, x_hi)
+    may = torch.zeros_like(may_row)
+    for p in range(2):
+        y_lo, y_hi = rows[..., _S_YLO + p], rows[..., _S_YHI + p]
+        cy0, cy1 = torch.fmax(y0, y_lo), torch.fmin(y1, y_hi)
+        ok = (y1 >= y_lo) & (y0 <= y_hi)
+        for j, threshold in ((_S_LEQ + 3 * p, 0.0), (_S_REQ + 3 * p, neg_tiny)):
+            a, b, c = rows[..., j], rows[..., j + 1], rows[..., j + 2]
+            x = torch.where(a >= 0, cx1, cx0)
+            y = torch.where(b >= 0, cy1, cy0)
+            ok = ok & (a * x + (b * y + c) > threshold)
+        may = may | ok
+    return may_row & may
+
+
+def region_cull(setup_tile, counts, grid: TileGrid):
+    """(n_tiles, regions, cap) bool: the (warp region, slot) pairs that the
+    forward kernel's cull (:func:`raster_may_cover`) keeps."""
+    return kernels.region_cull(raster_may_cover, setup_tile, counts, grid, RASTER_FWD_PIXELS)
+
+
 def raster_fwd_reference(setup_tile, affine_tile, counts, grid: TileGrid):
     """Plain version of the forward kernel; differentiable in
     ``affine_tile`` by autograd."""
@@ -87,19 +163,8 @@ def raster_fwd_reference(setup_tile, affine_tile, counts, grid: TileGrid):
     best = torch.full((nt, th, tw), cap, dtype=torch.int32, device=device)
     n_iter = int(count.max()) if nt else 0
     for k in range(n_iter):
-        row = setup_tile[:, k, :, None, None]  # (nt, 22, 1, 1)
-        cov = torch.zeros((nt, th, tw), dtype=torch.bool, device=device)
-        for p in range(2):
-            la, lb, lc = row[:, _S_LEQ + 3 * p], row[:, _S_LEQ + 3 * p + 1], row[:, _S_LEQ + 3 * p + 2]
-            ra, rb, rc = row[:, _S_REQ + 3 * p], row[:, _S_REQ + 3 * p + 1], row[:, _S_REQ + 3 * p + 2]
-            row_ok = (yy >= row[:, _S_YLO + p]) & (yy <= row[:, _S_YHI + p])
-            plane_l = la * xx + (lb * yy + lc)
-            plane_r = ra * xx + (rb * yy + rc)
-            cov = cov | (row_ok & (plane_l > 0.0) & (plane_r > neg_tiny))
-        cov = cov & (xx >= row[:, _S_XLO]) & (xx <= row[:, _S_XHI])
-        z = row[:, _S_Z] * xx + (row[:, _S_Z + 1] * yy + row[:, _S_Z + 2])
-        cov = cov & (row[:, _S_VALID] > 0.5) & torch.isfinite(z) & (k < count)[:, None, None]
-        better = cov & (z < best_z)
+        cov, z = _coverage(setup_tile[:, k, :, None, None], yy, xx, neg_tiny)
+        better = cov & (k < count)[:, None, None] & (z < best_z)
         best_z = torch.where(better, z, best_z)
         best = torch.where(better, k, best)
 
@@ -140,7 +205,8 @@ def raster_bwd_reference(slot_map, g_vals, counts, grid: TileGrid, cap: int):
 
 
 def raster_fwd(setup_tile, affine_tile, counts, grid: TileGrid, impl: str = "kernel"):
-    """Forward solid pass → (slot_map, z, vals) in the padded layout."""
+    """Forward solid pass → (slot_map, z, vals) in the padded layout; the
+    kernel is launched in the shape of :func:`raster_fwd_launch_shape`."""
     if not kernels.use_kernel(affine_tile, impl):
         return raster_fwd_reference(setup_tile, affine_tile, counts, grid)
     kernels.check_float(affine_tile, "affine_tile")
@@ -150,6 +216,7 @@ def raster_fwd(setup_tile, affine_tile, counts, grid: TileGrid, impl: str = "ker
     kernels.check_tensor(setup_tile, "setup_tile", dtype, (nt, cap, SETUP_WIDTH))
     kernels.check_tensor(affine_tile, "affine_tile", dtype, (nt, cap, 3 * d))
     kernels.check_tensor(counts, "counts", torch.int32, (nt,))
+    shape = raster_fwd_launch_shape(grid.tile_h, grid.tile_w, affine_tile.element_size())
     hp, wp = grid.padded_hw
     dev = affine_tile.device
     slot_map = torch.empty((hp, wp), dtype=torch.int32, device=dev)
@@ -158,7 +225,7 @@ def raster_fwd(setup_tile, affine_tile, counts, grid: TileGrid, impl: str = "ker
     kernels.launch(
         "raster_fwd", dtype,
         setup_tile.data_ptr(), affine_tile.data_ptr(), counts.data_ptr(),
-        nt, grid.n_tx, grid.tile_h, grid.tile_w, cap, d,
+        nt, grid.n_tx, grid.tile_h, grid.tile_w, cap, d, *shape,
         slot_map.data_ptr(), z.data_ptr(), vals.data_ptr(),
     )
     return slot_map, z, vals

@@ -26,7 +26,13 @@ tables of tests/torch_port_scenes.py (tiles of 0, 1, 31, 33, 70 and more
 slots, one at the capacity). The backward kernels that write whole tables
 are checked to write every entry (a NaN-filled block waits in the caching
 allocator) and, where they add nothing with atomics, to give bit-identical
-tables from call to call.
+tables from call to call. The last four hold the redesigned forward kernels
+B1f and B2f against their plain versions at every tile height (B1f on
+the synthetic raster tables of tests/torch_port_scenes.py: more than a
+chunk of slots, equal z planes, NaN, denormal, infinite and invalid rows,
+empty tiles, vertices on warp-region corners), check that their launchers
+refuse any shape but their helpers', and that the float32 projection
+ignores TF32.
 """
 
 import numpy as np
@@ -410,3 +416,112 @@ def test_edge_bwd_launchers_refuse_another_shared_size(cuda_device, textured, mo
         with pytest.raises(RuntimeError, match="kernel failed"):
             call()
         assert sum(kernels.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("tile_h", [8, 16, 32, 48])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_raster_fwd_kernel_matches_plain_version(cuda_device, dtype, tile_h):
+    """B1f against its plain version on the synthetic raster tables:
+    slot_map and coverage (finite z) exact, z within 1e-5 and vals within
+    1e-4 (float64: 1e-12); outputs from a NaN-filled allocator block, one
+    launch per call."""
+    from deodr_tpu_torch.ops import kernels
+    from deodr_tpu_torch.ops.kernels import raster_kernel as rk
+    from torch_port_scenes import RASTER_CAP, synthetic_raster_tables
+
+    lim_z, lim_v = (1e-12, 1e-12) if dtype == torch.float64 else (1e-5, 1e-4)
+    setup, affine, counts, grid = synthetic_raster_tables(tile_h, 7, dtype, cuda_device)
+    slot_r, z_r, v_r = rk.raster_fwd(setup, affine, counts, grid, impl="reference")
+    assert int(slot_r[slot_r < RASTER_CAP].max()) >= 64  # a winner from the second chunk
+    fin = torch.isfinite(z_r)
+    _prefill_allocator(v_r.numel(), dtype, cuda_device)
+    kernels.reset_launches()
+    slot_k, z_k, v_k = rk.raster_fwd(setup, affine, counts, grid)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["raster_fwd"] == 1
+    assert torch.equal(slot_k, slot_r)
+    assert torch.equal(torch.isfinite(z_k), fin)
+    assert float((z_k[fin] - z_r[fin]).abs().max()) <= lim_z
+    assert float((v_k - v_r).abs().max()) <= lim_v
+
+
+@pytest.mark.parametrize("tile_h", [8, 16, 32, 48])
+@pytest.mark.parametrize("error_mode", [False, True], ids=["image", "error"])
+@pytest.mark.parametrize("c", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_edge_fwd_kernel_matches_plain_version(cuda_device, dtype, c, error_mode, tile_h):
+    """B2f against its plain version on the synthetic edge tables (tiles of
+    0, 1, 31, 33, 65, 70 slots, one at the capacity and one above it):
+    within 1e-4 (float64: 1e-12), from a NaN-filled allocator block, one
+    launch per call."""
+    from deodr_tpu_torch.ops import kernels
+    from deodr_tpu_torch.ops.kernels import edge_kernel as ek
+    from torch_port_scenes import synthetic_edge_tables
+
+    lim = 1e-12 if dtype == torch.float64 else 1e-4
+    table, _, buf0, final, z_pad, obs_pad, counts, grid = synthetic_edge_tables(tile_h, c, error_mode, False, dtype,
+                                                                                cuda_device)
+    assert bool((final != buf0).any())
+    _prefill_allocator(final.numel(), dtype, cuda_device)
+    kernels.reset_launches()
+    out = ek.edge_fwd(table, buf0, z_pad, obs_pad, counts, grid, error_mode)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["edge_fwd"] == 1
+    assert float((out - final).abs().max()) <= lim
+
+
+@pytest.mark.parametrize("kernel", ["raster", "edge"])
+def test_fwd_launchers_refuse_another_shape(cuda_device, kernel, monkeypatch):
+    """A forward kernel's entry point takes only the shape its launch-shape
+    helper gives: one more thread group, block or 8 bytes of shared memory
+    is refused with an error, and nothing is launched."""
+    from deodr_tpu_torch.ops import kernels
+    from deodr_tpu_torch.ops.kernels import edge_kernel as ek
+    from deodr_tpu_torch.ops.kernels import raster_kernel as rk
+    from torch_port_scenes import synthetic_edge_tables, synthetic_raster_tables
+
+    if kernel == "raster":
+        setup, affine, counts, grid = synthetic_raster_tables(16, 3, torch.float32, cuda_device)
+        module, helper = rk, "raster_fwd_launch_shape"
+        call = lambda: rk.raster_fwd(setup, affine, counts, grid)  # noqa: E731
+    else:
+        table, _, buf0, _, z_pad, obs_pad, counts, grid = synthetic_edge_tables(16, 3, False, False, torch.float32,
+                                                                                cuda_device)
+        module, helper = ek, "edge_fwd_launch_shape"
+        call = lambda: ek.edge_fwd(table, buf0, z_pad, obs_pad, counts, grid, False)  # noqa: E731
+    call()
+    shape = getattr(module, helper)
+    for change in (dict(threads=32), dict(blocks_per_tile=1), dict(smem_bytes=8)):
+        def wrong(*a, change=change):
+            s = shape(*a)
+            return s._replace(**{k: getattr(s, k) + v for k, v in change.items()})
+
+        monkeypatch.setattr(module, helper, wrong)
+        kernels.reset_launches()
+        with pytest.raises(RuntimeError, match="kernel failed"):
+            call()
+        assert sum(kernels.LAUNCHES.values()) == 0
+
+
+def test_projection_ignores_tf32(cuda_device):
+    """With TF32 on for matrix products, the float32 projection of the
+    duck's vertices through the duck's camera matches the float64 one within
+    1e-3 px: the camera's products cannot take TF32."""
+    from deodr_tpu_torch import duck_scene as ds
+    from deodr_tpu_torch.camera import default_camera, project_points_arrays
+    from deodr_tpu_torch.geometry.mesh import ColoredTriMesh
+
+    mesh = ColoredTriMesh.load(str(ds.DATA_PATH / "duck.obj"))
+    camera = default_camera(ds.DUCK_WIDTH, ds.DUCK_HEIGHT, 60, mesh.vertices.numpy(), np.diag([1.0, -1.0, -1.0]))
+    out = {}
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for dtype in (torch.float32, torch.float64):
+            def t(a):
+                return torch.as_tensor(a, dtype=dtype, device=cuda_device)
+
+            out[dtype], _ = project_points_arrays(t(camera.extrinsic), t(camera.intrinsic), None, t(mesh.vertices))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    assert float((out[torch.float32].double() - out[torch.float64]).abs().max()) <= 1e-3

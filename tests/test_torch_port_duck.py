@@ -165,6 +165,23 @@ def test_camera_matches_jax(meshes):
         default_camera(640, 480, 60, mesh_p.vertices.numpy(), 2.0 * ROT)
 
 
+def test_importing_the_port_leaves_tf32_switches_alone():
+    """The port sets none of PyTorch's global switches: TF32 turned on
+    before importing it (the package, its scene and its camera) is still on
+    after."""
+    import subprocess
+    import sys
+
+    code = ("import torch\n"
+            "torch.backends.cuda.matmul.allow_tf32 = True\n"
+            "torch.backends.cudnn.allow_tf32 = True\n"
+            "import deodr_tpu_torch, deodr_tpu_torch.scene, deodr_tpu_torch.camera\n"
+            "print(torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True, timeout=120, check=True)
+    assert out.stdout.split() == ["True", "True"]
+
+
 def test_adjacency_and_normals_match_jax(meshes, jax_duck):
     mesh_p, mesh_j = meshes
     adj_p, adj_j = mesh_p.adjacencies, mesh_j.adjacencies

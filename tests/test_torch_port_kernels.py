@@ -5,7 +5,10 @@ each wrapper runs its plain PyTorch version:
   float32 tables (forward outputs and vjp cotangents), with the tolerances
   of tests/test_pallas_kernels.py; slot_map must match exactly;
 - each plain backward against autograd through its plain forward, in
-  float64, to 1e-9 relative.
+  float64, to 1e-9 relative;
+- the forward kernels' region culls: their plain mirrors never drop a
+  (region, slot) pair that covers a pixel, B1f's covered-pair count against
+  the JAX coverage predicate, and the forward launch shapes.
 
 The CUDA kernels themselves are held against these plain versions on the
 card (tests/test_torch_port_cuda.py and chip_smoke.py).
@@ -287,3 +290,158 @@ def test_edge_plain_backward_matches_autograd_f64_many_slots(textured, error_mod
     assert scale > 0 and int((g_rows[:, :, 0] != 0).sum()) > 64
     assert float((g_auto - g_rows).abs().max()) <= 1e-9 * scale
     assert float((auto[1] - g_buf0).abs().max()) <= 1e-9 * float(auto[1].abs().max())
+
+
+# ------------------------------------------------------------- the forward kernels' region cull
+
+
+@pytest.mark.parametrize("tile_h", [48, 64])
+def test_raster_covered_visits_matches_jax_coverage(tile_h):
+    """raster_kernel.covered_visits, the count behind B1f's operations
+    bound, equals the (pixel, slot) pairs that the JAX package's coverage
+    predicate (``_coverage_and_z``, strict edge, affine depth) covers,
+    evaluated eagerly slot by slot on the same float32 tables."""
+    from deodr_tpu.ops.pallas.raster_kernel import _coverage_and_z
+    from deodr_tpu_torch.ops.kernels import tile_coords
+
+    rt, _, _, _, _ = _tables(torch.float32, tile_h)
+    grid, cap = rt.grid, rt.setup_tile.shape[1]
+    cfg = PallasRasterConfig(grid.tile_h, grid.tile_w, grid.n_ty, grid.n_tx, cap, 3, True, False)
+    yy, xx = tile_coords(grid, torch.float32, "cpu")
+    yrow, xs = jnp.asarray(_np(yy)), jnp.asarray(_np(xx.expand(grid.n_tiles, grid.tile_h, grid.tile_w)))
+    setup, counts = _np(rt.setup_tile), _np(rt.counts)
+    want = 0
+    for k in range(int(counts.max())):
+        cov, _ = _coverage_and_z(cfg, lambda j, k=k: jnp.asarray(setup[:, k, j])[:, None, None], yrow, xs)
+        want += int((np.asarray(cov) & (k < counts)[:, None, None]).sum())
+    assert want > 0
+    assert rk.covered_visits(rt.setup_tile, rt.counts, grid) == want
+
+
+def _adversarial_edge_table(dtype, tile_h=16):
+    """The synthetic edge tables (tile_h × 128 tiles) with hand-made bands in
+    the slots of the fullest tile: clip planes through warp-region corners
+    whose thresholds are met exactly at a pixel, zero, denormal and NaN
+    coefficients, a NaN threshold and y range, and an inactive band."""
+    from torch_port_scenes import synthetic_edge_tables
+
+    table, _, _, _, _, _, counts, grid = synthetic_edge_tables(tile_h, 3, False, False, dtype)
+    t = int(torch.argmax(counts))
+    x0, y0 = (t % grid.n_tx) * grid.tile_w, (t // grid.n_tx) * grid.tile_h
+    tiny = torch.finfo(dtype).tiny
+    den = tiny / 8
+    nan = float("nan")
+    box = [(1, 0, -(x0 + 16), 0), (-1, 0, x0 + 48, -tiny), (0, 1, -(y0 + 2), -1), (0, -1, y0 + 6, 0)]
+    bands = [
+        box,  # x0 + 16 < x ≤ x0 + 48, y0 + 2 ≤ y < y0 + 6: each threshold met exactly at a pixel
+        [(0, 0, 0, -tiny), (0, 0, 0, -tiny), (0, 0, 0, -tiny), (0, 0, 0, -tiny)],  # zero planes: everywhere
+        [(0, 0, 0, 0)] + box[1:],  # a zero plane against a 0 threshold: nowhere
+        [(den, 0, -den * (x0 + 3), 0), (-den, 0, den * (x0 + 8), -tiny)] + box[2:],  # denormal planes
+        [(nan, 0, 0, -1)] + box[1:],
+        box[:3] + [(0, -1, y0 + 6, nan)],
+    ]
+    for k, planes in enumerate(bands):
+        row = table[t, k]
+        for i, (a, b, c, th) in enumerate(planes):
+            row[3 * i : 3 * i + 3] = torch.tensor([a, b, c], dtype=dtype)
+            row[12 + i] = th
+        row[19], row[20] = y0 - 1.0, y0 + grid.tile_h
+    table[t, len(bands), 19] = nan  # a NaN y range
+    table[t, len(bands) + 1, 24 + 3 * 3] = 0.0  # inactive
+    return table, counts, grid
+
+
+def _regions_covered(cov, grid, pixels):
+    """(n_tiles, regions, cap): whether a slot covers some pixel of a warp
+    region, from per-pixel coverage cov (n_tiles, cap, tile_h, tile_w); a
+    region is 2·rp rows × 16·cp columns of the tile, as ``region_pixel`` in
+    csrc/common.cuh lays them out."""
+    from deodr_tpu_torch.ops import kernels
+
+    nt, cap = cov.shape[:2]
+    g = kernels.warp_regions(grid.tile_h, grid.tile_w, pixels)
+    ly = torch.arange(grid.tile_h)[:, None] // (2 * g.rp)
+    lx = torch.arange(grid.tile_w)[None, :] // (16 * g.cp)
+    region = (ly * g.cols + lx).reshape(-1)
+    hits = torch.zeros((nt, cap, g.count), dtype=torch.int64).index_add_(2, region, cov.reshape(nt, cap, -1).long())
+    return (hits > 0).transpose(1, 2)
+
+
+@pytest.mark.parametrize("table", ["soup", "adversarial"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("kernel", ["raster", "edge"])
+def test_region_culls_never_drop_a_covered_pair(kernel, dtype, table):
+    """The plain mirrors of the forward kernels' region culls
+    (``raster_may_cover``, ``band_may_cover``) keep every (warp region, slot)
+    pair where the slot covers a pixel of the region (the raster coverage
+    predicate; a band's y range and clip planes), on every region of every
+    tile; on the soup they drop most of the other pairs."""
+    from deodr_tpu_torch.ops.kernels import tile_coords
+    from torch_port_scenes import synthetic_raster_tables
+
+    if kernel == "raster":
+        if table == "soup":
+            rt = _tables(dtype, 48)[0]
+            rows, counts, grid = rt.setup_tile, rt.counts, rt.grid
+        else:
+            rows, _, counts, grid = synthetic_raster_tables(16, 3, dtype)
+        module, pixels = rk, rk.RASTER_FWD_PIXELS
+        neg_tiny = -torch.finfo(dtype).tiny
+        yy, xx = tile_coords(grid, dtype, "cpu")
+        cov = rk._coverage(rows[:, :, :, None, None], yy[:, None], xx[:, None], neg_tiny)[0]
+    else:
+        if table == "soup":
+            et = _tables(dtype, 48)[1]
+            rows, counts, grid = et.table_tile, et.counts, et.grid
+        else:
+            rows, counts, grid = _adversarial_edge_table(dtype)
+        module, pixels = ek, ek.EDGE_FWD_PIXELS
+        yy, xx = tile_coords(grid, dtype, "cpu")
+        r, yy, xx = rows[:, :, :, None, None], yy[:, None], xx[:, None]
+        cov = (yy >= r[:, :, ek._E_YBEG]) & (yy <= r[:, :, ek._E_YEND])
+        for i in range(4):
+            cov = cov & (r[:, :, 3 * i] * xx + (r[:, :, 3 * i + 1] * yy + r[:, :, 3 * i + 2]) > r[:, :, ek._E_TH + i])
+    cap = rows.shape[1]
+    used = torch.arange(cap)[None, :] < counts.to(torch.int64).clamp(max=cap)[:, None]
+    cov = cov & used[:, :, None, None]
+    assert int(cov.sum()) > 0
+    kept = module.region_cull(rows, counts, grid)
+    needed = _regions_covered(cov, grid, pixels)
+    assert kept.shape == needed.shape
+    assert int((needed & ~kept).sum()) == 0
+    if table == "soup":
+        assert int(kept.sum()) < int(used.sum()) * kept.shape[1] // 4
+
+
+@pytest.mark.parametrize("kernel", ["raster", "edge"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("tile_h", [8, 16, 32, 48])
+def test_fwd_launch_shape(tile_h, dtype, kernel):
+    """The forward kernels' launch shapes at the planner's tile heights
+    (width 128), at the pixels a lane each kernel holds (1 for the raster
+    kernel, 2 for the edge kernel): blocks of 256 threads, as many a tile as
+    hold its pixels once, and shared memory for two 64-row chunks of the
+    table."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if kernel == "raster":
+        shape, width, pixels = rk.raster_fwd_launch_shape(tile_h, 128, itemsize), 22, rk.RASTER_FWD_PIXELS
+    else:
+        shape, width, pixels = ek.edge_fwd_launch_shape(tile_h, 128, 3, itemsize), 34, ek.EDGE_FWD_PIXELS
+    assert shape == (256, tile_h * 128 // (256 * pixels), 2 * 64 * width * itemsize)
+    assert shape.threads * shape.blocks_per_tile * pixels == tile_h * 128
+
+
+def test_fwd_launch_shape_small_tiles_and_other_pixel_counts():
+    """The forward frame's shared helper (``kernels.fwd_launch_shape``,
+    ``fwd_shape`` in csrc/common.cuh, which lays out a kernel's regions at
+    its own pixels a lane): a tile of fewer warp regions than a block has
+    warps gets one block of a warp per region (regions of 1, 2 or 4 patches
+    side by side on a one-patch-high tile); a tile without pixels one warp,
+    in both kernels' helpers."""
+    from deodr_tpu_torch.ops import kernels
+
+    assert [kernels.fwd_launch_shape(2, 40, p, 22, 4) for p in (1, 2, 4)] == [
+        (96, 1, 2 * 64 * 22 * 4), (64, 1, 2 * 64 * 22 * 4), (32, 1, 2 * 64 * 22 * 4)]
+    assert rk.raster_fwd_launch_shape(2, 40, 4) == (96, 1, 2 * 64 * 22 * 4)
+    assert rk.raster_fwd_launch_shape(0, 128, 4) == (32, 1, 2 * 64 * 22 * 4)
+    assert ek.edge_fwd_launch_shape(0, 128, 1, 8) == (32, 1, 2 * 64 * 28 * 8)

@@ -230,3 +230,72 @@ def synthetic_edge_tables(tile_h, nb_colors, error_mode, textured, dtype=torch.f
         else:
             final = ek.edge_fwd_reference(table_t, buf_t, z_t, obs_t, counts, grid, error_mode)
     return table_t, tex_t, buf_t, final, z_t, obs_t, counts, grid
+
+
+# counts of the synthetic raster tiles: none, one, under a chunk, exactly one chunk (64 rows) and one slot into
+# the next, many, exactly the capacity, and above it (clamped)
+RASTER_CAP = 120
+RASTER_COUNTS = (0, 1, 31, 64, 65, 100, RASTER_CAP, RASTER_CAP + 5)
+
+
+def synthetic_raster_tables(tile_h, d=7, dtype=torch.float64, device="cpu", seed=0):
+    """Solid-pass inputs on a 2 × 4 grid of tile_h × 128 tiles with the slot
+    counts of RASTER_COUNTS, each slot a triangle's row from
+    ``triangle_row_setup``: a third with vertices on warp-region corners (x
+    a multiple of 16, y of 2, so pixel centres lie on their edges), the
+    others 1-40 px wide around a random point of the tile, depths 1-10.
+    Every 7th slot repeats the row 3 slots before it (equal z planes: the
+    lower slot must win), one in 20 is invalid and one in 20 has a NaN
+    coefficient. The last tile starts with hand-made rows: a right plane
+    exactly 0 on a column of pixels, zero, denormal and infinite
+    coefficients, all NaN, a NaN depth plane, and an invalid row that covers
+    the tile. Rows at or above a tile's count hold triangles too, which
+    would cover pixels if a kernel read them. → (setup_tile, affine_tile,
+    counts, grid)"""
+    from deodr_tpu_torch.ops.kernels import TileGrid
+    from deodr_tpu_torch.ops.raster import triangle_row_setup
+    from deodr_tpu_torch.ops.tiled import _pack_setup_rows
+
+    rng = np.random.RandomState(seed)
+    grid = TileGrid(2, 4, tile_h, 128)
+    nt, cap = grid.n_tiles, RASTER_CAP
+    origin = np.array([[(t % grid.n_tx) * 128, (t // grid.n_tx) * tile_h] for t in range(nt)], np.float64)
+    corners = origin[:, None, None, :] + np.stack(
+        [16 * rng.randint(-1, 9, (nt, cap, 3)), 2 * rng.randint(-1, tile_h // 2 + 2, (nt, cap, 3))], axis=-1)
+    centre = origin[:, None, None, :] + rng.uniform(0, 1, (nt, cap, 1, 2)) * [128, tile_h]
+    loose = centre + rng.uniform(-0.5, 0.5, (nt, cap, 3, 2)) * rng.uniform(1, 40, (nt, cap, 1, 1))
+    v_xy = np.where(rng.rand(nt, cap, 1, 1) < 1 / 3, corners, loose).reshape(nt * cap, 3, 2)
+    v_z = rng.uniform(1, 10, (nt * cap, 3))
+    setup = triangle_row_setup(torch.from_numpy(v_xy), torch.from_numpy(v_z), torch.ones(nt * cap, dtype=torch.bool),
+                               4 * 128, 2 * tile_h)
+    rows = _pack_setup_rows(setup, torch.float64).numpy().reshape(nt, cap, 22).copy()
+    for k in range(7, cap, 7):
+        rows[:, k] = rows[:, k - 3]
+    rows[rng.rand(nt, cap) < 0.05, 21] = 0.0
+    nan_at = rng.rand(nt, cap) < 0.05
+    rows[nan_at, rng.randint(0, 22, int(nan_at.sum()))] = np.nan
+
+    tiny = float(torch.finfo(dtype).tiny)
+    den = tiny / 8  # a denormal of the dtype
+    x0, y0 = origin[-1]
+    whole = [y0, 1.0, y0 + tile_h - 1, 0.0]  # sub-triangle 0 spans the tile's rows, sub-triangle 1 none
+    hand = [
+        # x > x0 + 20.5 and a right plane exactly 0 at x = x0 + 37
+        whole + [1, 0, -(x0 + 20.5), 0, 0, 0, -1, 0, x0 + 37, 0, 0, 0, x0 + 10, x0 + 60, 0, 0, 0.25, 1],
+        # zero planes: left 0 > 0 never holds
+        whole + [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, x0, x0 + 127, 0, 0, 0.2, 1],
+        # a denormal left offset > 0, a zero right plane > −tiny: covers the x range
+        whole + [0, 0, den, 0, 0, 0, 0, 0, 0, 0, 0, 0, x0 + 30, x0 + 50, 0, 0, 0.3, 1],
+        # denormal slopes: x0 + 3 < x < x0 + 16 through denormal plane values
+        whole + [den, 0, -den * (x0 + 3), 0, 0, 0, -den, 0, den * (x0 + 8), 0, 0, 0, x0, x0 + 127, 0, 0, 0.1, 1],
+        # an infinite slope (NaN where it meets x = 0, +inf elsewhere)
+        whole + [np.inf, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, x0, x0 + 127, 0, 0, 5.0, 1],
+        [np.nan] * 22,
+        whole + [1, 0, -x0, 0, 0, 0, -1, 0, x0 + 90, 0, 0, 0, x0, x0 + 127, np.nan, 0, 0.05, 1],
+        whole + [0, 0, 1, 0, 0, 0, 0, 0, 1, 0, 0, 0, x0, x0 + 127, 0, 0, 0.01, 0],
+    ]
+    rows[-1, : len(hand)] = np.array(hand, np.float64)
+    affine = rng.normal(0, 1, (nt, cap, 3 * d))
+    counts = torch.tensor(RASTER_COUNTS, dtype=torch.int32, device=device)
+    setup_t, affine_t = (torch.from_numpy(a).to(device, dtype) for a in (rows, affine))
+    return setup_t, affine_t, counts, grid
