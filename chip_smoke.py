@@ -29,7 +29,8 @@ Phases, each of which fails the run (non-zero exit) on any miss:
    mode (buffer within 1e-4, gradient rows and texture gradient within
    1e-3 of their scale: float32 atomics sum in another order; gradient rows
    from two calls bit-identical) and the
-   raster kernel again with its 7 attribute planes (and its cull counts).
+   raster kernel again with its 7 attribute planes (the cull counts of both
+   forward kernels).
    Then ``render_scene``
    forward + backward with ``check_capacity=True`` against
    ``impl="reference"``: image, z-buffer and the gradients to ij, uv, shade
@@ -65,9 +66,9 @@ Phases, each of which fails the run (non-zero exit) on any miss:
    checked by what they hold: ``reps`` repeats of one sequence of
    operations, with the wrapper's kernel by name). The same session counts the
    device operations of one call of the wrappers, which must be one for the
-   raster and edge forward and backward and the quad-blend backward (the
-   kernel, no memset beside it) and two for the textured edge backward (the
-   texture gradient's zero-fill and the kernel). A kernel's operations
+   raster, edge and textured edge forward, the raster and edge backward and
+   both quad-blend kernels (the kernel, no memset beside it) and two for the
+   textured edge backward (the texture gradient's zero-fill and the kernel). A kernel's operations
    bound counts only the (pixel, slot) pairs its slots cover; each backward
    bound is printed twice: with the used rows of its table written, and
    with the whole table (the zero rows up to the capacity) written;
@@ -615,6 +616,7 @@ def check_tex_kernels(scene, obs, device, say, plan=None):
                     f"planes and y range hold at {e_visits} of the {e_rows * et.grid.tile_h * et.grid.tile_w} (pixel, "
                     f"slot) pairs (the operations bound's visits); textured slots paint {tex_visits} pairs, "
                     f"{tap_bytes} bytes of taps")
+                cull_line("edge_tex_fwd", etk, et.table_tile, et.counts, et.grid, e_visits, say)
                 out["edge_tex_fwd"].update(
                     ms=time_ms(lambda: etk.edge_tex_fwd(*args), 50, device),
                     device_fn=lambda args=args: etk.edge_tex_fwd(*args),
@@ -1022,10 +1024,11 @@ def run(device="cuda", height=512, width=512, n_tri=200, smi_line=None):
     def device_time(m, f):
         return times.get((id(m), f), (None, None))[0]
 
-    # a redesigned wrapper launches its kernel and nothing else (edge_tex_bwd: and g_texture's zero-fill)
+    # a wrapper launches its kernel and nothing else (edge_tex_bwd: and g_texture's zero-fill)
     for path_name, per_kernel in measured.items():
-        for name, expected in (("raster_fwd", 1), ("raster_bwd", 1), ("edge_fwd", 1), ("quad_blend_bwd", 1),
-                               ("edge_bwd", 1), ("edge_tex_bwd", 2)):
+        for name, expected in (("raster_fwd", 1), ("raster_bwd", 1), ("edge_fwd", 1), ("edge_bwd", 1),
+                               ("edge_tex_fwd", 1), ("edge_tex_bwd", 2), ("quad_blend_fwd", 1),
+                               ("quad_blend_bwd", 1)):
             if name in per_kernel:
                 n_ops = times[(id(per_kernel[name]), "device_fn")][1]
                 say(f"{name} on {path_name}: {'not measured' if n_ops is None else f'{n_ops:g}'} device operations "

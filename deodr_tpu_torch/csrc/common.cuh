@@ -47,14 +47,8 @@ __device__ __forceinline__ Pixel pixel_at(int tile, int local, int n_tx, int til
   return p;
 }
 
-// Pixel owned by this thread: tile blockIdx.x, pixel blockIdx.y·256 + tid.
-__device__ __forceinline__ Pixel pixel_of(int tile, int n_tx, int tile_h, int tile_w) {
-  return pixel_at(tile, blockIdx.y * blockDim.x + threadIdx.x, n_tx, tile_h, tile_w);
-}
-
 // ---- shared by the edge-pass kernels (edge_kernel.cu, edge_tex_kernel.cu) ----
 
-constexpr int kEdgeChunk = 32;  // edge rows staged in shared memory at a time
 constexpr double kTDivEps = 1e-6;
 
 // Affine plane c0·x + (c1·y + c2), in the plain PyTorch versions' operation order.
@@ -65,26 +59,12 @@ __device__ __forceinline__ T plane3(const T* c, T x, T y) {
 
 // Blend mask and transparency of one edge row at pixel (x, y); row layout
 // in edge_kernel.py (the textured row appends its columns after it). T is
-// 0.5 where the mask is off, as on the TPU.
-template <typename T, int C>
-__device__ __forceinline__ bool band_mask(const T* r, T x, T y, T zb, T& t) {
-  t = plane3(r + 16, x, y);
-  bool cov = true;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) cov = cov && (plane3(r + 3 * i, x, y) > r[12 + i]);
-  cov = cov && y >= r[19] && y <= r[20];
-  const T z = plane3(r + 21 + 3 * C, x, y);
-  const bool mask = cov && (z < zb) && (r[24 + 3 * C] > (T)0.5) && isfinite(t);
-  if (!mask) t = (T)0.5;
-  return mask;
-}
-
-// band_mask for the forward kernels, the same tests in the same operation
-// order: every test is evaluated and the results are combined with bitwise
-// ands, so that a slot's shared-memory loads and planes issue together
+// 0.5 where the mask is off, as on the TPU. Every test is evaluated and the
+// results are combined with bitwise ands, in the plain versions' operation
+// order, so that a slot's shared-memory loads and planes issue together
 // instead of as a chain of branches, each waiting on its own load.
 template <typename T, int C>
-__device__ __forceinline__ bool band_mask_flat(const T* r, T x, T y, T zb, T& t) {
+__device__ __forceinline__ bool band_mask(const T* r, T x, T y, T zb, T& t) {
   t = plane3(r + 16, x, y);
   bool cov = (y >= r[19]) & (y <= r[20]);
 #pragma unroll
@@ -532,7 +512,7 @@ cudaError_t launch_tile_clusters(K kernel, int n_tiles, int threads, int blocks_
   return cudaGetLastError();
 }
 
-// ---- the forward frame shared by the raster and edge forward kernels ----
+// ---- the forward frame shared by the raster, edge and textured edge forward kernels ----
 //
 // A warp owns a region of its tile, laid out as in the backward frame (its
 // lanes a 16 × 2 patch, each lane P pixels in as many patches); a tile's

@@ -25,7 +25,7 @@
 // lane (band_may_cover, the backward's exact cull) and walks the kept ones
 // in painter's order, each lane holding its pixels' C colour planes (or one
 // residual plane), z-buffer and observations in registers; the band test
-// of a kept slot is evaluated without branches (band_mask_flat). Measured
+// of a kept slot is evaluated without branches (band_mask). Measured
 // (chip_smoke.py, same card, float32, device time per call): 0.0075 ms on
 // the bench scene (bound 0.0023); built for 1 and 4 pixels a lane
 // instead, it took 0.0083 and 0.0097 ms.
@@ -98,7 +98,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int j = 0; j < P; ++j) {
           T t;
-          if (!((inside >> j) & 1u) || !band_mask_flat<T, C>(r, x[j], y[j], zb[j], t)) continue;
+          if (!((inside >> j) & 1u) || !band_mask<T, C>(r, x[j], y[j], zb[j], t)) continue;
           T a[C];
 #pragma unroll
           for (int ch = 0; ch < C; ++ch) a[ch] = plane3(r + 21 + 3 * ch, x[j], y[j]);

@@ -18,26 +18,39 @@
 // eu is 0 where fu < 0, 1 where fu > tex_w − 2, else u − fu; taps at
 // clamp(fu, 0, tex_w − 2); a clamped coordinate gets no gradient.
 //
-// What bounds it on the H100. As edge_kernel.cu, every pixel visits every
-// band binned to its tile and pays ~33 float operations for the band test;
-// only the few pixels inside a band pay for the fetch (three more planes,
-// 4·C loads) and, in the backward, for 4·C global atomics. The bytes are a
-// handful of planes per pixel, the table, the taps of the painted pixels
-// only (a few kB on a thin silhouette, not the texture) and, in the
-// backward, the dense texture gradient that the caller zero-fills. A scene
-// with many bands per tile is bound by operations, as the untextured pass
-// is; the duck's silhouette is thin (about 4 slots per 8×128 tile), and
-// there the frame's planes make the bytes the larger bound. Either
-// bound is a few microseconds, far below a launch. The hazards are the
-// latency of the dependent texel loads inside the sequential slot loop and
-// atomic contention where many band pixels share a texel (magnified
-// textures).
+// What bounds it on the H100. A band covers few of its tile's pixels (its
+// clip planes and y range hold at 0.2 % of the duck's (pixel, slot) pairs,
+// edge_kernel.covered_visits), each ~33 float operations for the band
+// test; only the few pixels inside a band pay for the fetch (three more
+// planes, 4·C loads) and, in the backward, for 4·C global atomics. The
+// bytes are a handful of planes per pixel, the table, the taps of the
+// painted pixels only (a few kB on a thin silhouette, not the texture) and,
+// in the backward, the dense texture gradient that the caller zero-fills.
+// On the duck the frame's planes make the bytes the larger bound, a few
+// microseconds, below a launch. The hazards are the latency of the
+// dependent texel loads inside the sequential slot loop and atomic
+// contention where many band pixels share a texel (magnified textures).
 //
-// The forward (first design). The frame of edge_kernel.cu's forward: one
-// thread per pixel, blocks of 256 pixels of one tile, rows staged in shared
-// memory 32 at a time, the C colour planes (or the one residual plane) in
-// registers. A slot's textured flag is uniform over the block, so the
-// colour branch does not diverge.
+// The forward. Its first design had one thread per pixel in blocks of 256
+// pixels of one tile, rows staged 32 at a time with plain loads, and every
+// pixel tested every slot with a chain of branches: 0.0202 ms of device
+// time on the duck (NVIDIA H100 80GB HBM3, 700 W), 7.6× its bound. This
+// design runs on the forward frame of common.cuh (fwd_chunks), as the
+// raster and edge forward kernels do: a warp owns a region (16 × 2 patches,
+// P = kTexFwdPixels = 1 pixel a lane), tests a staged 64-row chunk's bands
+// against the region's rectangle two a lane (band_may_cover: the textured
+// row keeps the band planes in the same columns, so the cull is exact here
+// too) and walks the kept ones in painter's order, each lane holding its
+// pixel's C colour planes (or one residual plane), z-buffer and
+// observations in registers and storing them once at the end; a kept slot
+// is load_slot (the branch-free band test and, inside the band, the
+// footprint, shade and 4·C texel loads) then the blend. Measured
+// (tools/fwd_scan.py, same card, float32, device time per call): 0.0095 ms
+// on the duck (bound 0.0027). Loading the next kept slot's inputs before
+// the current one blends, as the backward does, took 0.0101-0.0137 ms at
+// every register budget tried: on the duck only 1812 (pixel, slot) pairs
+// fetch texels, so there is little latency to hide and the second slot's
+// registers cost more than it; two pixels a lane took 0.0130.
 //
 // The backward. It runs edge_bwd_frame (common.cuh), as edge_kernel.cu's
 // backward does (one cluster per tile writing whole rows, 16 × 2 patches a
@@ -52,8 +65,9 @@
 // columns a slot does not own, and rows ≥ count, are written 0. g_tex keeps
 // its atomics (the caller zero-fills it): the order of a texel's adds may
 // change its last bit from call to call, g_rows does not change. Measured
-// (chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W) it takes 0.037 ms on
-// the duck against the first design's 0.041: its 300 tiles take 4 blocks
+// (chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W) it took 0.037 ms on
+// the duck against the first design's 0.041, and 0.031 once band_mask lost
+// its branches (tools/fwd_scan.py, same card): its 300 tiles take 4 blocks
 // each, about two waves of blocks whose latency chain (count, rows, walk,
 // cluster barrier, remote reads) costs microseconds even on the 177 empty and
 // the many light tiles, and the fullest tiles (65 and 68 slots) cross a
@@ -94,72 +108,11 @@ __device__ __forceinline__ Footprint<T> footprint_of(T u, T v, int tex_h, int te
 // Column offsets of the textured row after the 25 + 3C untextured columns.
 constexpr int kTexU = 0, kTexV = 3, kTexL = 6, kTexFlag = 9, kTexExtra = 10;
 
-template <typename T, int C, bool kErr>
-__global__ void __launch_bounds__(kThreads)
-    edge_tex_fwd_kernel(const T* __restrict__ table, const int* __restrict__ counts, const T* __restrict__ zbuf,
-                        const T* __restrict__ obs, const T* __restrict__ tex, const T* __restrict__ buf_in, int n_tx,
-                        int tile_h, int tile_w, int cap, int tex_h, int tex_w, T* __restrict__ buf_out) {
-  constexpr int W0 = 25 + 3 * C;
-  constexpr int W = W0 + kTexExtra;
-  constexpr int NCH = kErr ? 1 : C;
-  __shared__ T rows[kEdgeChunk * W];
-  const int tile = blockIdx.x;
-  const Pixel px = pixel_of(tile, n_tx, tile_h, tile_w);
-  const size_t plane = (size_t)gridDim.x * tile_h * tile_w;
-  const T x = (T)px.x, y = (T)px.y;
-  const int count = min(counts[tile], cap);
-
-  T buf[NCH], ob[C];
-  T zb = (T)0;
-#pragma unroll
-  for (int ch = 0; ch < NCH; ++ch) buf[ch] = px.inside ? buf_in[ch * plane + px.offset] : (T)0;
-#pragma unroll
-  for (int ch = 0; ch < C; ++ch) ob[ch] = (kErr && px.inside) ? obs[ch * plane + px.offset] : (T)0;
-  if (px.inside) zb = zbuf[px.offset];
-
-  const T* tile_rows = table + (size_t)tile * cap * W;
-  for (int base = 0; base < count; base += kEdgeChunk) {
-    const int n = min(kEdgeChunk, count - base);
-    __syncthreads();
-    for (int i = threadIdx.x; i < n * W; i += blockDim.x) rows[i] = tile_rows[(size_t)base * W + i];
-    __syncthreads();
-    if (!px.inside) continue;
-    for (int k = 0; k < n; ++k) {
-      const T* r = rows + k * W;
-      T t;
-      if (!band_mask<T, C>(r, x, y, zb, t)) continue;
-      T a[C];
-      if (r[W0 + kTexFlag] > (T)0.5) {
-        const T u = plane3(r + W0 + kTexU, x, y);
-        const T v = plane3(r + W0 + kTexV, x, y);
-        const T lum = plane3(r + W0 + kTexL, x, y);
-        const Footprint<T> f = footprint_of(u, v, tex_h, tex_w);
-        const T* t00 = tex + (size_t)f.i00 * C;
-        const T* t01 = t00 + (size_t)tex_w * C;
-        const T one_eu = (T)1 - f.eu, one_ev = (T)1 - f.ev;
-#pragma unroll
-        for (int ch = 0; ch < C; ++ch) {
-          const T top = one_eu * t00[ch] + f.eu * t00[C + ch];
-          const T bot = one_eu * t01[ch] + f.eu * t01[C + ch];
-          a[ch] = (top * one_ev + bot * f.ev) * lum;
-        }
-      } else {
-#pragma unroll
-        for (int ch = 0; ch < C; ++ch) a[ch] = plane3(r + 21 + 3 * ch, x, y);
-      }
-      blend<T, C, kErr>(a, ob, t, buf);
-    }
-  }
-  if (!px.inside) return;
-#pragma unroll
-  for (int ch = 0; ch < NCH; ++ch) buf_out[ch * plane + px.offset] = buf[ch];
-}
-
-// The half of one backward slot at one pixel that does not depend on the
-// carried buffer: the band test and, inside the band, a plain slot's colour
-// planes or a textured slot's shade, footprint and 4·C texels. The kernel
-// loads slot k − 1's while slot k un-blends, so that the texel loads'
-// latency overlaps that work instead of lengthening the serial chain.
+// The half of one slot at one pixel that does not depend on the carried
+// buffer: the band test and, inside the band, a plain slot's colour planes
+// or a textured slot's shade, footprint and 4·C texels. The backward loads
+// slot k − 1's while slot k un-blends, so that the texel loads' latency
+// overlaps that work instead of lengthening the serial chain.
 template <typename T, int C>
 struct SlotInputs {
   bool mask;
@@ -176,7 +129,7 @@ template <typename T, int C>
 __device__ __forceinline__ void load_slot(const T* r, bool textured, bool may, T x, T y, T zb,
                                           const T* __restrict__ tex, int tex_h, int tex_w, SlotInputs<T, C>& s) {
   constexpr int W0 = 25 + 3 * C;
-  s.mask = may && band_mask<T, C>(r, x, y, zb, s.t);
+  s.mask = band_mask<T, C>(r, x, y, zb, s.t) & may;
   if (!s.mask) return;
   if (textured) {
     const T u = plane3(r + W0 + kTexU, x, y);
@@ -245,6 +198,89 @@ __device__ __forceinline__ void apply_slot(const SlotInputs<T, C>& s, bool textu
   add_moments(v + 3, g_u, x, y);
   add_moments(v + 6, g_v, x, y);
   add_moments(v + 9, g_lum, x, y);
+}
+
+// The band colour a[C] of a masked pixel from its slot's inputs: a plain
+// slot's colour planes, or a textured slot's bilinear sample times its
+// shade, in the plain version's operation order (bilinear_blend, then the
+// shade).
+template <typename T, int C>
+__device__ __forceinline__ void band_color(const SlotInputs<T, C>& s, bool textured, T (&a)[C]) {
+  if (!textured) {
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) a[ch] = s.a[ch];
+    return;
+  }
+  const T one_eu = (T)1 - s.f.eu, one_ev = (T)1 - s.f.ev;
+#pragma unroll
+  for (int ch = 0; ch < C; ++ch) {
+    const T top = one_eu * s.tap[0][ch] + s.f.eu * s.tap[1][ch];
+    const T bot = one_eu * s.tap[2][ch] + s.f.eu * s.tap[3][ch];
+    a[ch] = (top * one_ev + bot * s.f.ev) * s.lum;
+  }
+}
+
+constexpr int kTexFwdPixels = 1;  // P, a lane's pixels in the forward: TEX_FWD_PIXELS in edge_tex_kernel.py
+
+// Minimum blocks per SM 1 (not the default): ptxas then gives the kernel 84
+// registers instead of 60 in float32 at C = 3, and it ran 6 % faster on the
+// duck though fewer blocks fit an SM (0.0095 against 0.0101 ms in turns in
+// one call, NVIDIA H100 80GB HBM3, 700 W, tools/fwd_scan.py).
+template <typename T, int C, bool kErr>
+__global__ void __launch_bounds__(kThreads, 1)
+    edge_tex_fwd_kernel(const T* __restrict__ table, const int* __restrict__ counts, const T* __restrict__ zbuf,
+                        const T* __restrict__ obs, const T* __restrict__ tex, const T* __restrict__ buf_in, int n_tx,
+                        int tile_h, int tile_w, int cap, int tex_h, int tex_w, int blocks_per_tile,
+                        T* __restrict__ buf_out) {
+  constexpr int W0 = 25 + 3 * C;
+  constexpr int W = W0 + kTexExtra;
+  constexpr int NCH = kErr ? 1 : C;
+  constexpr int P = kTexFwdPixels;
+  const FwdWarp w(blocks_per_tile, tile_h, tile_w, P);
+  const size_t plane = (size_t)(gridDim.x / blocks_per_tile) * tile_h * tile_w;
+  const int count = min(counts[w.tile], cap);
+
+  // a lane's P pixels: position, offset, z-buffer, buffer and, in error mode, observation
+  unsigned inside = 0;
+  T x[P], y[P], zb[P], buf[P][NCH], ob[P][C];
+  size_t offset[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const Pixel p = region_pixel(w.tile, w.g, w.region, j, n_tx, tile_h, tile_w);
+    inside |= (unsigned)p.inside << j;
+    offset[j] = p.offset;
+    x[j] = (T)p.x;
+    y[j] = (T)p.y;
+    // read whether or not the tile has slots: the loads do not wait for its count
+    zb[j] = p.inside ? zbuf[p.offset] : (T)0;
+#pragma unroll
+    for (int ch = 0; ch < NCH; ++ch) buf[j][ch] = p.inside ? buf_in[ch * plane + p.offset] : (T)0;
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) ob[j][ch] = (kErr && p.inside) ? obs[ch * plane + p.offset] : (T)0;
+  }
+  T rect[4];
+  region_rect(w.tile, w.g, w.region, n_tx, tile_h, tile_w, rect);
+  fwd_chunks<T, W>(
+      table + (size_t)w.tile * cap * W, count, w.valid,
+      [&](const T* r) { return band_may_cover(r, rect[0], rect[1], rect[2], rect[3]); },
+      [&](const T* r, int) {
+        const bool textured = r[W0 + kTexFlag] > (T)0.5;  // warp-uniform: every lane reads the same row
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+          SlotInputs<T, C> s;
+          load_slot(r, textured, ((inside >> j) & 1u) != 0, x[j], y[j], zb[j], tex, tex_h, tex_w, s);
+          if (!s.mask) continue;
+          T a[C];
+          band_color(s, textured, a);
+          blend<T, C, kErr>(a, ob[j], s.t, buf[j]);
+        }
+      });
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    if (!((inside >> j) & 1u)) continue;
+#pragma unroll
+    for (int ch = 0; ch < NCH; ++ch) buf_out[ch * plane + offset[j]] = buf[j][ch];
+  }
 }
 
 // Pixels a lane of the backward kernel holds at most. One pixel a lane
@@ -329,9 +365,15 @@ struct TexArgs {
 };
 
 template <typename T, int C, bool kErr>
-static void tex_fwd_launch(dim3 grid, cudaStream_t s, const TexArgs<T>& a, const T* buf_in, T* buf_out) {
-  edge_tex_fwd_kernel<T, C, kErr><<<grid, kThreads, 0, s>>>(a.table, a.counts, a.zbuf, a.obs, a.tex, buf_in, a.n_tx,
-                                                             a.tile_h, a.tile_w, a.cap, a.tex_h, a.tex_w, buf_out);
+static cudaError_t tex_fwd_launch(int n_tiles, int threads, int blocks_per_tile, size_t smem_bytes, cudaStream_t s,
+                                  const TexArgs<T>& a, const T* buf_in, T* buf_out) {
+  if (!fwd_shape_ok(a.tile_h, a.tile_w, threads, blocks_per_tile, kTexFwdPixels, smem_bytes,
+                    (35 + 3 * C) * sizeof(T)))
+    return cudaErrorInvalidValue;
+  edge_tex_fwd_kernel<T, C, kErr><<<n_tiles * blocks_per_tile, threads, smem_bytes, s>>>(
+      a.table, a.counts, a.zbuf, a.obs, a.tex, buf_in, a.n_tx, a.tile_h, a.tile_w, a.cap, a.tex_h, a.tex_w,
+      blocks_per_tile, buf_out);
+  return cudaGetLastError();
 }
 
 template <typename T, int C, bool kErr>
@@ -363,14 +405,16 @@ static bool dispatch_c_err(int c, bool err, const F& f) {
 
 template <typename T>
 struct TexFwdCall {
-  dim3 grid;
+  int n_tiles, threads, blocks_per_tile;
+  size_t smem_bytes;
   cudaStream_t s;
   TexArgs<T> a;
   const T* buf_in;
   T* buf_out;
+  mutable cudaError_t result;
   template <int C, bool kErr>
   void operator()() const {
-    tex_fwd_launch<T, C, kErr>(grid, s, a, buf_in, buf_out);
+    result = tex_fwd_launch<T, C, kErr>(n_tiles, threads, blocks_per_tile, smem_bytes, s, a, buf_in, buf_out);
   }
 };
 
@@ -393,19 +437,23 @@ struct TexBwdCall {
 template <typename T>
 static int edge_tex_fwd_launch(const void* table, const void* counts, const void* zbuf, const void* obs,
                                const void* tex, const void* buf_in, int n_tiles, int n_tx, int tile_h, int tile_w,
-                               int cap, int c, int err, int tex_h, int tex_w, void* buf_out, void* stream) {
-  const int n_px = tile_h * tile_w;
-  if (n_tiles == 0 || n_px == 0) return 0;
+                               int cap, int c, int err, int tex_h, int tex_w, int threads, int blocks_per_tile,
+                               int smem_bytes, void* buf_out, void* stream) {
+  if (n_tiles == 0 || tile_h * tile_w == 0) return 0;
   if (tex_h < 2 || tex_w < 2) return (int)cudaErrorInvalidValue;
   TexFwdCall<T> call;
-  call.grid = dim3(n_tiles, (n_px + kThreads - 1) / kThreads);
+  call.n_tiles = n_tiles;
+  call.threads = threads;
+  call.blocks_per_tile = blocks_per_tile;
+  call.smem_bytes = (size_t)smem_bytes;
   call.s = (cudaStream_t)stream;
   call.a = TexArgs<T>{(const T*)table, (const T*)zbuf, (const T*)obs, (const T*)tex, (const int*)counts,
                       n_tx, tile_h, tile_w, cap, tex_h, tex_w};
   call.buf_in = (const T*)buf_in;
   call.buf_out = (T*)buf_out;
+  call.result = cudaErrorInvalidValue;
   if (!dispatch_c_err(c, err != 0, call)) return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return (int)call.result;
 }
 
 template <typename T>
@@ -441,16 +489,18 @@ extern "C" {
 
 int edge_tex_fwd_f32(const void* table, const void* counts, const void* zbuf, const void* obs, const void* tex,
                      const void* buf_in, int n_tiles, int n_tx, int tile_h, int tile_w, int cap, int c, int err,
-                     int tex_h, int tex_w, void* buf_out, void* stream) {
+                     int tex_h, int tex_w, int threads, int blocks_per_tile, int smem_bytes, void* buf_out,
+                     void* stream) {
   return deodr::edge_tex_fwd_launch<float>(table, counts, zbuf, obs, tex, buf_in, n_tiles, n_tx, tile_h, tile_w, cap, c,
-                                           err, tex_h, tex_w, buf_out, stream);
+                                           err, tex_h, tex_w, threads, blocks_per_tile, smem_bytes, buf_out, stream);
 }
 
 int edge_tex_fwd_f64(const void* table, const void* counts, const void* zbuf, const void* obs, const void* tex,
                      const void* buf_in, int n_tiles, int n_tx, int tile_h, int tile_w, int cap, int c, int err,
-                     int tex_h, int tex_w, void* buf_out, void* stream) {
+                     int tex_h, int tex_w, int threads, int blocks_per_tile, int smem_bytes, void* buf_out,
+                     void* stream) {
   return deodr::edge_tex_fwd_launch<double>(table, counts, zbuf, obs, tex, buf_in, n_tiles, n_tx, tile_h, tile_w, cap,
-                                            c, err, tex_h, tex_w, buf_out, stream);
+                                            c, err, tex_h, tex_w, threads, blocks_per_tile, smem_bytes, buf_out, stream);
 }
 
 int edge_tex_bwd_f32(const void* table, const void* counts, const void* zbuf, const void* obs, const void* tex,

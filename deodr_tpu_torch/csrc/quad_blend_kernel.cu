@@ -24,7 +24,17 @@
 // (quads on the lane axis, a transposed window table) exists because a TPU
 // has no cheap gather; here one thread per pixel reads its 4 taps directly
 // and blends them in the operation order of bilinear_blend, so kernel and
-// plain version agree bit for bit (compiled with -fmad=false).
+// plain version agree bit for bit (compiled with -fmad=false). It is a
+// template on C, so all 4·C tap loads of a pixel issue together once its
+// offsets arrive; its first design looped over a run-time C, one round of
+// loads per channel. One thread per quad instead (16-byte coefficient
+// loads, 16·C taps and 4·C outputs a thread) was twice as slow: a warp's
+// lanes then read 32 windows 64·C values apart, where four neighbouring
+// pixel threads share one window. Measured (tools/fwd_scan.py, NVIDIA H100
+// 80GB HBM3, 700 W, the duck's 32256 quads at C = 3, float32, device time
+// per call): 0.0030 ms at 64 threads a block, 0.0031-0.0032 at 128 and
+// 256, 0.0042 at 32; one thread a quad 0.0065-0.0082; the first design
+// 0.0039 and grid_sample 0.0040 in the same calls; bound 0.0018.
 //
 // The backward. Its first design gave each quad to one warp, whose lanes
 // walked the 64·C window entries and, for each entry, searched the quad's
@@ -50,7 +60,7 @@
 // Measured (chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W, the duck's
 // 32256 quads at C = 3, float32, two runs): 0.0122-0.0124 ms of device time
 // per call against a bound of 0.0096 ms and grid_sample's backward at
-// 0.0397-0.0399 ms; the forward 0.0040-0.0041 ms against 0.0018.
+// 0.0397-0.0399 ms.
 
 #include "common.cuh"
 
@@ -72,21 +82,30 @@ struct Vec16<double> {
   static __device__ __forceinline__ double2 zero() { return make_double2(0.0, 0.0); }
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// The forward's block: 64 threads, one per pixel (16 quads); the fastest of 32, 64, 128 and 256.
+constexpr int kQuadFwdThreads = 64;
+
+template <typename T, int C>
+__global__ void __launch_bounds__(kQuadFwdThreads)
     quad_blend_fwd_kernel(const T* __restrict__ win, const int* __restrict__ dv, const int* __restrict__ du,
-                          const T* __restrict__ ev, const T* __restrict__ eu, int n_quads, int c,
-                          T* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;  // pixel 4q + p
+                          const T* __restrict__ ev, const T* __restrict__ eu, int n_quads, T* __restrict__ out) {
+  const int i = blockIdx.x * kQuadFwdThreads + threadIdx.x;  // pixel 4q + p
   if (i >= 4 * n_quads) return;
   const int q = i >> 2;
-  const int r = min(max(dv[i], 0), 6), x = min(max(du[i], 0), 6);
+  const T* tap = win + (size_t)q * 64 * C + (min(max(dv[i], 0), 6) * 8 + min(max(du[i], 0), 6)) * C;
   const T wv = ev[i], wu = eu[i];
-  const T* w = win + (size_t)q * 64 * c + (size_t)(r * 8 + x) * c;
-  for (int ch = 0; ch < c; ++ch) {
-    const T t00 = w[ch], t10 = w[c + ch], t01 = w[8 * c + ch], t11 = w[9 * c + ch];
-    out[(size_t)i * c + ch] = (((T)1 - wu) * t00 + wu * t10) * ((T)1 - wv) + (((T)1 - wu) * t01 + wu * t11) * wv;
+  T t[4][C];  // t00, t10, t01, t11: all 4·C loads issue before the first blend
+#pragma unroll
+  for (int ch = 0; ch < C; ++ch) {
+    t[0][ch] = __ldg(tap + ch);
+    t[1][ch] = __ldg(tap + C + ch);
+    t[2][ch] = __ldg(tap + 8 * C + ch);
+    t[3][ch] = __ldg(tap + 9 * C + ch);
   }
+#pragma unroll
+  for (int ch = 0; ch < C; ++ch)
+    out[(size_t)i * C + ch] =
+        (((T)1 - wu) * t[0][ch] + wu * t[1][ch]) * ((T)1 - wv) + (((T)1 - wu) * t[2][ch] + wu * t[3][ch]) * wv;
 }
 
 template <typename T, int C>
@@ -158,14 +177,26 @@ __global__ void __launch_bounds__(kQuadBwdThreads)
   }
 }
 
+template <typename T, int C>
+static int quad_blend_fwd_launch_c(const void* win, const void* dv, const void* du, const void* ev, const void* eu,
+                                   int n_quads, void* out, void* stream) {
+  quad_blend_fwd_kernel<T, C><<<(4 * n_quads + kQuadFwdThreads - 1) / kQuadFwdThreads, kQuadFwdThreads, 0,
+                                (cudaStream_t)stream>>>((const T*)win, (const int*)dv, (const int*)du, (const T*)ev,
+                                                        (const T*)eu, n_quads, (T*)out);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 static int quad_blend_fwd_launch(const void* win, const void* dv, const void* du, const void* ev, const void* eu,
                                  int n_quads, int c, void* out, void* stream) {
   if (n_quads == 0) return 0;
-  const int n = 4 * n_quads;
-  quad_blend_fwd_kernel<T><<<(n + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)win, (const int*)dv, (const int*)du, (const T*)ev, (const T*)eu, n_quads, c, (T*)out);
-  return (int)cudaGetLastError();
+  switch (c) {
+    case 1: return quad_blend_fwd_launch_c<T, 1>(win, dv, du, ev, eu, n_quads, out, stream);
+    case 2: return quad_blend_fwd_launch_c<T, 2>(win, dv, du, ev, eu, n_quads, out, stream);
+    case 3: return quad_blend_fwd_launch_c<T, 3>(win, dv, du, ev, eu, n_quads, out, stream);
+    case 4: return quad_blend_fwd_launch_c<T, 4>(win, dv, du, ev, eu, n_quads, out, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <typename T, int C>

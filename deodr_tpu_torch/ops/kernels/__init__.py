@@ -62,8 +62,8 @@ _SIGNATURES = {
     # threads, blocks_per_tile, pixels, smem_bytes, g_table, g_buf0, stream
     "edge_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     # table, counts, zbuf, obs, texture, buf_in, n_tiles, n_tx, tile_h, tile_w, cap, C, err, tex_h, tex_w,
-    # buf_out, stream
-    "edge_tex_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
+    # threads, blocks_per_tile, smem_bytes, buf_out, stream
+    "edge_tex_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     # table, counts, zbuf, obs, texture, buf_final, g_out, n_tiles, n_tx, tile_h, tile_w, cap, C, err,
     # tex_h, tex_w, threads, blocks_per_tile, pixels, smem_bytes, g_table, g_buf0, g_texture, stream
     "edge_tex_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
@@ -218,7 +218,8 @@ FWD_THREADS = 256
 
 
 class FwdShape(NamedTuple):
-    """Launch shape of a forward kernel (``raster_fwd``, ``edge_fwd``), all
+    """Launch shape of a forward kernel (``raster_fwd``, ``edge_fwd``,
+    ``edge_tex_fwd``), all
     of it passed to the kernel's entry point: ``blocks_per_tile``
     independent blocks of ``threads`` threads a tile, a warp a region of
     the tile, and ``smem_bytes`` of shared memory for two chunks of table

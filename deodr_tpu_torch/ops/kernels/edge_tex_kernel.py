@@ -53,11 +53,14 @@ from deodr_tpu_torch.ops.kernels.edge_kernel import (
     _plane,
     _sq_residual,
     _unblend,
+    band_may_cover,
     edge_bwd_launch_shape,
     edge_row_width,
 )
 
 _TEX_EXTRA = 10
+# pixels a lane of the forward kernel holds (kTexFwdPixels in csrc/edge_tex_kernel.cu)
+TEX_FWD_PIXELS = 1
 
 
 def tex_row_width(nb_colors: int) -> int:
@@ -66,6 +69,22 @@ def tex_row_width(nb_colors: int) -> int:
 
 def tex_grad_row_width(nb_colors: int) -> int:
     return 12 + 3 * nb_colors
+
+
+def edge_tex_fwd_launch_shape(tile_h: int, tile_w: int, nb_colors: int, itemsize: int) -> kernels.FwdShape:
+    """Launch shape of ``edge_tex_fwd`` (:func:`kernels.fwd_launch_shape`):
+    the tile's warp regions at ``TEX_FWD_PIXELS`` pixels a lane over
+    independent blocks of up to 256 threads, two 64-row chunks of the
+    textured table in shared memory."""
+    return kernels.fwd_launch_shape(tile_h, tile_w, TEX_FWD_PIXELS, tex_row_width(nb_colors), itemsize)
+
+
+def region_cull(table_tile, counts, grid: TileGrid):
+    """(n_tiles, regions, cap) bool: the (warp region, slot) pairs that the
+    forward kernel's cull keeps: :func:`.edge_kernel.band_may_cover` on the
+    band planes, which the textured row keeps in the untextured row's
+    columns, at ``TEX_FWD_PIXELS`` pixels a lane."""
+    return kernels.region_cull(band_may_cover, table_tile, counts, grid, TEX_FWD_PIXELS)
 
 
 def _e_uc(nb_colors: int) -> int:
@@ -235,17 +254,19 @@ def edge_tex_fwd(table_tile, texture, buffer0, z_pad, obs_pad, counts, grid: Til
                  impl: str = "kernel"):
     """Forward textured edge pass → blended buffer (nch, H', W');
     ``texture`` is (th, tw, C) and ``obs_pad`` (C, H', W') is read in error
-    mode only (may be None otherwise)."""
+    mode only (may be None otherwise). The kernel is launched in the shape
+    of :func:`edge_tex_fwd_launch_shape`."""
     if not kernels.use_kernel(buffer0, impl):
         return edge_tex_fwd_reference(table_tile, texture, buffer0, z_pad, obs_pad, counts, grid, error_mode)
     c, cap = _check_inputs(table_tile, texture, buffer0, z_pad, obs_pad, counts, grid, error_mode)
+    shape = edge_tex_fwd_launch_shape(grid.tile_h, grid.tile_w, c, buffer0.element_size())
     out = torch.empty_like(buffer0)
     kernels.launch(
         "edge_tex_fwd", buffer0.dtype,
         table_tile.data_ptr(), counts.data_ptr(), z_pad.data_ptr(),
         obs_pad.data_ptr() if error_mode else None, texture.data_ptr(), buffer0.data_ptr(),
         grid.n_tiles, grid.n_tx, grid.tile_h, grid.tile_w, cap, c, int(error_mode),
-        texture.shape[0], texture.shape[1], out.data_ptr(),
+        texture.shape[0], texture.shape[1], *shape, out.data_ptr(),
     )
     return out
 

@@ -26,13 +26,14 @@ tables of tests/torch_port_scenes.py (tiles of 0, 1, 31, 33, 70 and more
 slots, one at the capacity). The backward kernels that write whole tables
 are checked to write every entry (a NaN-filled block waits in the caching
 allocator) and, where they add nothing with atomics, to give bit-identical
-tables from call to call. The last four hold the redesigned forward kernels
-B1f and B2f against their plain versions at every tile height (B1f on
+tables from call to call. The last six hold the redesigned forward kernels
+B1f, B2f and B3f against their plain versions at every tile height (B1f on
 the synthetic raster tables of tests/torch_port_scenes.py: more than a
 chunk of slots, equal z planes, NaN, denormal, infinite and invalid rows,
-empty tiles, vertices on warp-region corners), check that their launchers
-refuse any shape but their helpers', and that the float32 projection
-ignores TF32.
+empty tiles, vertices on warp-region corners; B3f on the textured synthetic
+edge tables), B4f bit for bit at every channel count, check that the
+forward launchers refuse any shape but their helpers', and that the
+float32 projection ignores TF32.
 """
 
 import numpy as np
@@ -470,13 +471,73 @@ def test_edge_fwd_kernel_matches_plain_version(cuda_device, dtype, c, error_mode
     assert float((out - final).abs().max()) <= lim
 
 
-@pytest.mark.parametrize("kernel", ["raster", "edge"])
+@pytest.mark.parametrize("tile_h", [8, 16, 32, 48])
+@pytest.mark.parametrize("error_mode", [False, True], ids=["image", "error"])
+@pytest.mark.parametrize("c", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_edge_tex_fwd_kernel_matches_plain_version(cuda_device, dtype, c, error_mode, tile_h):
+    """B3f against its plain version on the textured synthetic edge tables
+    (tiles of 0, 1, 31, 33, 65, 70 slots, one at the capacity and one above
+    it; about half the slots textured with uv past the texture's borders,
+    the others plain with NaN uv): within 1e-4 (float64: 1e-12), from a
+    NaN-filled allocator block, one launch per call."""
+    from deodr_tpu_torch.ops import kernels
+    from deodr_tpu_torch.ops.kernels import edge_tex_kernel as etk
+    from torch_port_scenes import synthetic_edge_tables
+
+    lim = 1e-12 if dtype == torch.float64 else 1e-4
+    table, texture, buf0, final, z_pad, obs_pad, counts, grid = synthetic_edge_tables(tile_h, c, error_mode, True,
+                                                                                      dtype, cuda_device)
+    assert bool((final != buf0).any())
+    _prefill_allocator(final.numel(), dtype, cuda_device)
+    kernels.reset_launches()
+    out = etk.edge_tex_fwd(table, texture, buf0, z_pad, obs_pad, counts, grid, error_mode)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["edge_tex_fwd"] == 1
+    assert float((out - final).abs().max()) <= lim
+
+
+# the quads a block of B4f takes (kQuadFwdThreads = 64 in csrc/quad_blend_kernel.cu, a thread a pixel)
+QUAD_FWD_BLOCK_QUADS = 16
+
+
+@pytest.mark.parametrize("q", [1, 31, 33, 300, QUAD_FWD_BLOCK_QUADS + 1])
+@pytest.mark.parametrize("c", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_quad_blend_fwd_kernel_matches_plain_version(cuda_device, dtype, c, q):
+    """B4f at every channel count, at Q of one quad, under and over a warp's
+    and a block's quads, with tap offsets beyond 0..6 (clamped at 0 and 6)
+    and weights of 0 and 1: equal to its plain version bit for bit (the
+    same operation order, -fmad=false), from a NaN-filled allocator block,
+    one launch per call."""
+    from deodr_tpu_torch.ops import kernels
+    from deodr_tpu_torch.ops.kernels import quad_blend_kernel as qbk
+
+    rng = np.random.RandomState(100 * c + q)
+    win = torch.from_numpy(rng.randn(q, 64 * c)).to(cuda_device, dtype)
+    dv = torch.from_numpy(rng.randint(-3, 10, (q, 4)).astype(np.int32)).to(cuda_device)
+    du = torch.from_numpy(rng.randint(-3, 10, (q, 4)).astype(np.int32)).to(cuda_device)
+    ev = torch.from_numpy(rng.rand(q, 4)).to(cuda_device, dtype)
+    eu = torch.from_numpy(rng.rand(q, 4)).to(cuda_device, dtype)
+    dv[0, :2], du[0, :2], ev[0, :2], eu[0, 2:] = 6, 0, 0.0, 1.0
+    args = (win, dv, du, ev, eu)
+    want = qbk.quad_blend_fwd(*args, impl="reference")
+    _prefill_allocator(want.numel(), dtype, cuda_device)
+    kernels.reset_launches()
+    got = qbk.quad_blend_fwd(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["quad_blend_fwd"] == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kernel", ["raster", "edge", "edge_tex"])
 def test_fwd_launchers_refuse_another_shape(cuda_device, kernel, monkeypatch):
     """A forward kernel's entry point takes only the shape its launch-shape
     helper gives: one more thread group, block or 8 bytes of shared memory
     is refused with an error, and nothing is launched."""
     from deodr_tpu_torch.ops import kernels
     from deodr_tpu_torch.ops.kernels import edge_kernel as ek
+    from deodr_tpu_torch.ops.kernels import edge_tex_kernel as etk
     from deodr_tpu_torch.ops.kernels import raster_kernel as rk
     from torch_port_scenes import synthetic_edge_tables, synthetic_raster_tables
 
@@ -484,6 +545,11 @@ def test_fwd_launchers_refuse_another_shape(cuda_device, kernel, monkeypatch):
         setup, affine, counts, grid = synthetic_raster_tables(16, 3, torch.float32, cuda_device)
         module, helper = rk, "raster_fwd_launch_shape"
         call = lambda: rk.raster_fwd(setup, affine, counts, grid)  # noqa: E731
+    elif kernel == "edge_tex":
+        table, texture, buf0, _, z_pad, obs_pad, counts, grid = synthetic_edge_tables(16, 3, False, True,
+                                                                                      torch.float32, cuda_device)
+        module, helper = etk, "edge_tex_fwd_launch_shape"
+        call = lambda: etk.edge_tex_fwd(table, texture, buf0, z_pad, obs_pad, counts, grid, False)  # noqa: E731
     else:
         table, _, buf0, _, z_pad, obs_pad, counts, grid = synthetic_edge_tables(16, 3, False, False, torch.float32,
                                                                                 cuda_device)

@@ -318,14 +318,15 @@ def test_raster_covered_visits_matches_jax_coverage(tile_h):
     assert rk.covered_visits(rt.setup_tile, rt.counts, grid) == want
 
 
-def _adversarial_edge_table(dtype, tile_h=16):
-    """The synthetic edge tables (tile_h × 128 tiles) with hand-made bands in
-    the slots of the fullest tile: clip planes through warp-region corners
-    whose thresholds are met exactly at a pixel, zero, denormal and NaN
-    coefficients, a NaN threshold and y range, and an inactive band."""
+def _adversarial_edge_table(dtype, tile_h=16, textured=False):
+    """The synthetic edge tables (tile_h × 128 tiles, textured rows where
+    ``textured``) with hand-made bands in the slots of the fullest tile:
+    clip planes through warp-region corners whose thresholds are met exactly
+    at a pixel, zero, denormal and NaN coefficients, a NaN threshold and y
+    range, and an inactive band."""
     from torch_port_scenes import synthetic_edge_tables
 
-    table, _, _, _, _, _, counts, grid = synthetic_edge_tables(tile_h, 3, False, False, dtype)
+    table, _, _, _, _, _, counts, grid = synthetic_edge_tables(tile_h, 3, False, textured, dtype)
     t = int(torch.argmax(counts))
     x0, y0 = (t % grid.n_tx) * grid.tile_w, (t // grid.n_tx) * grid.tile_h
     tiny = torch.finfo(dtype).tiny
@@ -369,15 +370,18 @@ def _regions_covered(cov, grid, pixels):
 
 @pytest.mark.parametrize("table", ["soup", "adversarial"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
-@pytest.mark.parametrize("kernel", ["raster", "edge"])
+@pytest.mark.parametrize("kernel", ["raster", "edge", "edge_tex"])
 def test_region_culls_never_drop_a_covered_pair(kernel, dtype, table):
     """The plain mirrors of the forward kernels' region culls
     (``raster_may_cover``, ``band_may_cover``) keep every (warp region, slot)
     pair where the slot covers a pixel of the region (the raster coverage
     predicate; a band's y range and clip planes), on every region of every
-    tile; on the soup they drop most of the other pairs."""
+    tile, at each kernel's pixels a lane; on the soup (for the textured
+    edge kernel: the textured synthetic tables) they drop most of the other
+    pairs."""
+    from deodr_tpu_torch.ops.kernels import edge_tex_kernel as etk
     from deodr_tpu_torch.ops.kernels import tile_coords
-    from torch_port_scenes import synthetic_raster_tables
+    from torch_port_scenes import synthetic_edge_tables, synthetic_raster_tables
 
     if kernel == "raster":
         if table == "soup":
@@ -390,12 +394,14 @@ def test_region_culls_never_drop_a_covered_pair(kernel, dtype, table):
         yy, xx = tile_coords(grid, dtype, "cpu")
         cov = rk._coverage(rows[:, :, :, None, None], yy[:, None], xx[:, None], neg_tiny)[0]
     else:
-        if table == "soup":
+        if kernel == "edge_tex" and table == "soup":
+            rows, _, _, _, _, _, counts, grid = synthetic_edge_tables(16, 3, False, True, dtype)
+        elif table == "soup":
             et = _tables(dtype, 48)[1]
             rows, counts, grid = et.table_tile, et.counts, et.grid
         else:
-            rows, counts, grid = _adversarial_edge_table(dtype)
-        module, pixels = ek, ek.EDGE_FWD_PIXELS
+            rows, counts, grid = _adversarial_edge_table(dtype, textured=kernel == "edge_tex")
+        module, pixels = (etk, etk.TEX_FWD_PIXELS) if kernel == "edge_tex" else (ek, ek.EDGE_FWD_PIXELS)
         yy, xx = tile_coords(grid, dtype, "cpu")
         r, yy, xx = rows[:, :, :, None, None], yy[:, None], xx[:, None]
         cov = (yy >= r[:, :, ek._E_YBEG]) & (yy <= r[:, :, ek._E_YEND])
@@ -413,20 +419,25 @@ def test_region_culls_never_drop_a_covered_pair(kernel, dtype, table):
         assert int(kept.sum()) < int(used.sum()) * kept.shape[1] // 4
 
 
-@pytest.mark.parametrize("kernel", ["raster", "edge"])
+@pytest.mark.parametrize("kernel", ["raster", "edge", "edge_tex"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 @pytest.mark.parametrize("tile_h", [8, 16, 32, 48])
 def test_fwd_launch_shape(tile_h, dtype, kernel):
     """The forward kernels' launch shapes at the planner's tile heights
     (width 128), at the pixels a lane each kernel holds (1 for the raster
-    kernel, 2 for the edge kernel): blocks of 256 threads, as many a tile as
-    hold its pixels once, and shared memory for two 64-row chunks of the
-    table."""
+    and textured edge kernels, 2 for the edge kernel): blocks of 256
+    threads, as many a tile as hold its pixels once, and shared memory for
+    two 64-row chunks of the table (rows of 35 + 3C for the textured
+    kernel)."""
+    from deodr_tpu_torch.ops.kernels import edge_tex_kernel as etk
+
     itemsize = torch.empty((), dtype=dtype).element_size()
     if kernel == "raster":
         shape, width, pixels = rk.raster_fwd_launch_shape(tile_h, 128, itemsize), 22, rk.RASTER_FWD_PIXELS
-    else:
+    elif kernel == "edge":
         shape, width, pixels = ek.edge_fwd_launch_shape(tile_h, 128, 3, itemsize), 34, ek.EDGE_FWD_PIXELS
+    else:
+        shape, width, pixels = etk.edge_tex_fwd_launch_shape(tile_h, 128, 3, itemsize), 44, etk.TEX_FWD_PIXELS
     assert shape == (256, tile_h * 128 // (256 * pixels), 2 * 64 * width * itemsize)
     assert shape.threads * shape.blocks_per_tile * pixels == tile_h * 128
 
@@ -437,11 +448,14 @@ def test_fwd_launch_shape_small_tiles_and_other_pixel_counts():
     its own pixels a lane): a tile of fewer warp regions than a block has
     warps gets one block of a warp per region (regions of 1, 2 or 4 patches
     side by side on a one-patch-high tile); a tile without pixels one warp,
-    in both kernels' helpers."""
+    in each kernel's helper."""
     from deodr_tpu_torch.ops import kernels
+    from deodr_tpu_torch.ops.kernels import edge_tex_kernel as etk
 
     assert [kernels.fwd_launch_shape(2, 40, p, 22, 4) for p in (1, 2, 4)] == [
         (96, 1, 2 * 64 * 22 * 4), (64, 1, 2 * 64 * 22 * 4), (32, 1, 2 * 64 * 22 * 4)]
     assert rk.raster_fwd_launch_shape(2, 40, 4) == (96, 1, 2 * 64 * 22 * 4)
     assert rk.raster_fwd_launch_shape(0, 128, 4) == (32, 1, 2 * 64 * 22 * 4)
     assert ek.edge_fwd_launch_shape(0, 128, 1, 8) == (32, 1, 2 * 64 * 28 * 8)
+    assert etk.edge_tex_fwd_launch_shape(2, 40, 3, 4) == (96, 1, 2 * 64 * 44 * 4)
+    assert etk.edge_tex_fwd_launch_shape(0, 128, 1, 8) == (32, 1, 2 * 64 * 38 * 8)

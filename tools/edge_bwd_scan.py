@@ -85,10 +85,12 @@ def main() -> int:
     for k in KS:
         cb = bench_et.counts.clamp(max=k).contiguous()
         cd = duck_et.counts.clamp(max=k).contiguous()
-        fns[("edge_bwd bench", k)] = lambda cb=cb: ek.edge_bwd(*bench, cb, bench_et.grid, False)
-        fns[("edge_tex_bwd duck", k)] = lambda cd=cd: etk.edge_tex_bwd(*duck_args, cd, duck_et.grid, False)
+        fns[("edge_bwd bench", k)] = (lambda cb=cb: ek.edge_bwd(*bench, cb, bench_et.grid, False), "edge_bwd_kernel")
+        fns[("edge_tex_bwd duck", k)] = (lambda cd=cd: etk.edge_tex_bwd(*duck_args, cd, duck_et.grid, False),
+                                         "edge_tex_bwd_kernel")
     for tile_h, (et, a) in duck.items():
-        fns[("edge_tex_bwd duck tiles", tile_h)] = lambda et=et, a=a: etk.edge_tex_bwd(*a, et.counts, et.grid, False)
+        fns[("edge_tex_bwd duck tiles", tile_h)] = (
+            lambda et=et, a=a: etk.edge_tex_bwd(*a, et.counts, et.grid, False), "edge_tex_bwd_kernel")
     for rep in range(2):
         times = cs.device_times(fns, device, reps=20)
         for name in ("edge_bwd bench", "edge_tex_bwd duck"):
