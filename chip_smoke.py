@@ -55,10 +55,37 @@ Phases, each of which fails the run (non-zero exit) on any miss:
    which computes B4's function, is timed beside it as a yardstick; then the
    median step (render + render_backward) with and without the quad fetch,
    and one profiled step of each;
-6. one JSON line ``{"kernels": [...]}``, one record per kernel and main path
+6. the untiled path and the remaining raster modes: (a) the bench scene
+   through ``render_scene(tiling=None)`` (``find_winners``, ``shade_pixels``
+   and the sequential edge pass in the windows of the planner's rule) at
+   σ = 0 and 1, image and error mode, forward + backward against the same
+   call in float64 on the CPU: in float64 on the card within 1e-9 (image,
+   z, gradients to ij and colors), and in float32 (image and error buffer
+   within 1e-4, z within 1e-3: float32 depth planes round their terms at
+   pixel coordinates of hundreds; gradients within 1e-3 of their scale;
+   the pixels where float32 and float64 take different sides of an edge
+   are counted, bounded by 0.1 % of the frame and left out of the loss on
+   both sides), at σ = 0 against the tiled kernel route (the
+   pixels where the rational and the plane coverage differ counted and
+   bounded), the median step; (b) the bench scene tiled with
+   ``strict_edge=False``: the raster kernels in their non-strict mode
+   against their plain versions, the main path against
+   ``impl="reference"`` and the median step; (c) the duck with
+   ``perspective_correct=True`` through ``render_scene`` on its plan: the
+   raster kernels in their perspective mode (8 attribute planes) against
+   their plain versions, the path (its textured edges take the sequential
+   pass, windowed) against ``impl="reference"``, a 3-step median; (d)
+   ``Scene3D`` on a 192-face torus (no tiling) at 640×480, σ = 1, textured
+   and untextured: render + render_backward on the card in float64 against
+   ``impl="reference"`` in float64 on the CPU (image, z and gradients
+   within 1e-9), the float32 step's results finite and on the card, its
+   median time. Launch
+   counts are zeroed before and read after each path;
+7. one JSON line ``{"kernels": [...]}``, one record per kernel and main path
    that launches it (launches on that path, error, times, the least time the
-   card could take at that path's shapes): 18 records over the paths
-   ``bench``, ``duck``, ``duck_scene3d`` and ``duck_quad``. ``ms`` times calls
+   card could take at that path's shapes): 22 records over the paths
+   ``bench``, ``duck``, ``duck_scene3d``, ``duck_quad``, ``bench_nonstrict``
+   and ``duck_persp``. ``ms`` times calls
    of the wrapper with CUDA events, host cost of the call included;
    ``device_ms`` (and ``library_device_ms``) is the device time of one call
    from ``torch.profiler``, every kernel's in one profiler session (each
@@ -72,7 +99,7 @@ Phases, each of which fails the run (non-zero exit) on any miss:
    bound counts only the (pixel, slot) pairs its slots cover; each backward
    bound is printed twice: with the used rows of its table written, and
    with the whole table (the zero rows up to the capacity) written;
-7. last line ``{"ok": true, "device": {...}}``.
+8. last line ``{"ok": true, "device": {...}}``.
 
 The scenes come from ``deodr_tpu_torch.bench_scene`` (numpy, seed 0, as
 ``bench.py`` builds it) and ``deodr_tpu_torch.duck_scene`` (``data/duck.obj``
@@ -103,11 +130,17 @@ AA_EDGE_CAPACITY = 600
 # planes and y range, edge_kernel.covered_visits): the rest fail on a whole
 # region at once
 OPS_PER_VISIT = {"raster_fwd": 33, "edge_fwd": 33, "edge_bwd": 33, "edge_tex_fwd": 33, "edge_tex_bwd": 33}
+# the raster forward's per-visit test in its non-strict mode (y and x ranges of two parts, the depth plane and
+# its tests; the row's bounds are shared by a half-warp), and the division of its perspective mode
+RASTER_NONSTRICT_OPS, RASTER_PERSP_OPS = 17, 1
 # the main paths whose measurements each kernel's records carry: the kernels line has one record per (kernel,
 # path). "duck" is render_scene on the duck's constant plan, "duck_scene3d" and "duck_quad" Scene3D on the
 # duck through its own planner, without and with the quad fetch; B4 runs only on "duck_quad"
 DUCK_PATHS = ("duck", "duck_scene3d", "duck_quad")
-KERNEL_PATHS = {"raster_fwd": ("bench",) + DUCK_PATHS, "raster_bwd": ("bench",) + DUCK_PATHS, "edge_fwd": ("bench",),
+# "bench_nonstrict" and "duck_persp" run the raster kernels in their non-strict and perspective modes
+MODE_PATHS = ("bench_nonstrict", "duck_persp")
+KERNEL_PATHS = {"raster_fwd": ("bench",) + DUCK_PATHS + MODE_PATHS, "raster_bwd": ("bench",) + DUCK_PATHS + MODE_PATHS,
+                "edge_fwd": ("bench",),
                 "edge_bwd": ("bench",), "edge_tex_fwd": DUCK_PATHS, "edge_tex_bwd": DUCK_PATHS,
                 "quad_blend_fwd": ("duck_quad",), "quad_blend_bwd": ("duck_quad",)}
 KERNEL_SOURCES = {
@@ -166,10 +199,12 @@ def device_times(fns, device, reps: int = 10):
     the name of the hand kernel it launches, or None for a PyTorch call)),
     all measured in one ``torch.profiler`` session (a session's start costs
     seconds): after a warm-up, before and inside the session (whose first
-    device events can go missing), the ``reps`` calls of each function run
+    tens of device events can go missing: inside, ``reps`` calls of each
+    function), the ``reps`` calls of each function run
     in turn with 10 ms of idle card between two functions, and the device
-    operations fall into one group per function where the card idles for
-    more than 3 ms (the profiler's device and host clocks can drift apart by
+    operations fall into one group per function (after the warm-up's, which
+    a session may lose whole) where the card idles for more than 3 ms (the
+    profiler's device and host clocks can drift apart by
     milliseconds, so the groups are not matched by host time). A group is
     given to its function by what it holds: ``reps`` repeats of one
     sequence of device operations, which launches the function's hand
@@ -199,8 +234,9 @@ def device_times(fns, device, reps: int = 10):
     seen = []
     for _ in range(3):  # the profiler now and then records no device events at all
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for fn, _ in fns.values():  # the warm-up group: a session can miss its first device events
-                fn()
+            for fn, _ in fns.values():  # the warm-up group: a session can miss its first tens of device events
+                for _ in range(reps):
+                    fn()
             torch.cuda.synchronize()
             for fn, _ in fns.values():
                 time.sleep(0.01)
@@ -214,17 +250,19 @@ def device_times(fns, device, reps: int = 10):
             if not groups or op[0] - groups[-1][-1][1] > 3000:
                 groups.append([])
             groups[-1].append(op)
+        # the warm-up's group, unless the session lost its first device events with it
+        groups = groups[len(groups) - len(fns):] if len(groups) in (len(fns), len(fns) + 1) else groups[1:]
         misplaced = [(key[1], kernel, sorted({op[2][:60] for op in g}))
-                     for (key, (_, kernel)), g in zip(fns.items(), groups[1:]) if not holds(g, kernel)]
-        if len(groups) == len(fns) + 1 and not misplaced:
+                     for (key, (_, kernel)), g in zip(fns.items(), groups) if not holds(g, kernel)]
+        if len(groups) == len(fns) and not misplaced:
             break
-        seen.append(f"{len(groups)} groups for {len(fns)} functions and the warm-up, "
+        seen.append(f"{len(groups)} groups for {len(fns)} functions after the warm-up, "
                     f"{len(misplaced)} not {reps} calls of their function (first: {misplaced[:1]})")
     else:
         raise Failure("device_times: no profiler session gave each function a group of its own kernels: "
                       + "; ".join(seen))
     return {key: (sum(end - start for start, end, _ in g) / 1e3 / reps, len(g) / reps)
-            for key, g in zip(fns, groups[1:])}
+            for key, g in zip(fns, groups)}
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -296,54 +334,61 @@ def edge_inputs(scene, tiling, obs, sigma, edge_cap, tex_plan=None):
     return out
 
 
-def cull_line(name, module, table, counts, grid, covered, say):
+def cull_line(name, module, table, counts, grid, covered, say, **mode):
     """The work of a forward kernel's region cull on this path's tables:
     the (warp region, slot) pairs it keeps (counted by the plain mirror of
-    the cull, ``module.region_cull``), against all of them, and the (pixel,
-    slot) pairs the slots cover."""
+    the cull, ``module.region_cull``, in the kernel's ``mode``), against
+    all of them, and the (pixel, slot) pairs the slots cover."""
     rows = int(counts.to(torch.int64).clamp(max=table.shape[1]).sum())
-    kept = module.region_cull(table, counts, grid)
+    kept = module.region_cull(table, counts, grid, **mode)
     say(f"{name} cull: (warp region, slot) pairs kept {int(kept.sum())} of {rows * kept.shape[1]}; "
         f"covered (pixel, slot) pairs {covered} of {rows * grid.tile_h * grid.tile_w}")
 
 
 def check_raster_kernels(scene, tiling, device, say, gen):
     """The raster kernels against their plain versions on ``scene``'s
-    tables; returns their measurements."""
+    tables, in the scene's coverage (``strict_edge``) and depth
+    (``perspective_correct``) modes; returns their measurements."""
     from deodr_tpu_torch.ops.kernels import raster_kernel as rk
     from deodr_tpu_torch.ops.render import prepare
     from deodr_tpu_torch.ops.tiled import raster_tables
 
     out = {}
+    mode = dict(strict=bool(scene.strict_edge), persp=bool(scene.perspective_correct))
+    ops_per_visit = ((OPS_PER_VISIT["raster_fwd"] if mode["strict"] else RASTER_NONSTRICT_OPS)
+                     + (RASTER_PERSP_OPS if mode["persp"] else 0))
     with torch.no_grad():
         ij_off, _, draw, _ = prepare(scene)
         rt = raster_tables(scene, ij_off, draw, tiling)
         grid, cap_r = rt.grid, rt.setup_tile.shape[1]
         n_px = grid.tile_h * grid.tile_w
-        visits = rk.covered_visits(rt.setup_tile, rt.counts, grid)
+        visits = rk.covered_visits(rt.setup_tile, rt.counts, grid, **mode)
         d = rt.affine_tile.shape[2] // 3
         esz = rt.affine_tile.element_size()
 
-        s_ref, z_ref, v_ref = rk.raster_fwd(rt.setup_tile, rt.affine_tile, rt.counts, grid, impl="reference")
-        s_k, z_k, v_k = rk.raster_fwd(rt.setup_tile, rt.affine_tile, rt.counts, grid)
+        def fwd(impl="kernel"):
+            return rk.raster_fwd(rt.setup_tile, rt.affine_tile, rt.counts, grid, impl, **mode)
+
+        s_ref, z_ref, v_ref = fwd("reference")
+        s_k, z_k, v_k = fwd()
         check(torch.equal(s_ref, s_k), "raster_fwd slot_map differs from the plain version")
         fin = torch.isfinite(z_ref)
         check(torch.equal(fin, torch.isfinite(z_k)), "raster_fwd coverage differs")
         e_z = max_err(z_k[fin], z_ref[fin])
         e_v = max_err(v_k, v_ref)
-        say(f"raster_fwd (D = {d}): slot_map exact, z err {e_z:.3g} (limit 1e-5), vals err {e_v:.3g} (limit 1e-4)")
+        say(f"raster_fwd (D = {d}, {mode}): slot_map exact, z err {e_z:.3g} (limit 1e-5), vals err {e_v:.3g} "
+            "(limit 1e-4)")
         check(e_z <= 1e-5 and e_v <= 1e-4, "raster_fwd outside its tolerance")
         rows = int(rt.counts.to(torch.int64).clamp(max=cap_r).sum())
         p_total = grid.n_tiles * n_px
-        cull_line("raster_fwd", rk, rt.setup_tile, rt.counts, grid, visits, say)
+        cull_line("raster_fwd", rk, rt.setup_tile, rt.counts, grid, visits, say, strict=mode["strict"])
         out["raster_fwd"] = dict(
             max_abs_err=max(e_z, e_v),
-            ms=time_ms(lambda: rk.raster_fwd(rt.setup_tile, rt.affine_tile, rt.counts, grid), 50, device),
-            device_fn=lambda: rk.raster_fwd(rt.setup_tile, rt.affine_tile, rt.counts, grid),
-            plain_ms=time_ms(lambda: rk.raster_fwd(rt.setup_tile, rt.affine_tile, rt.counts, grid, impl="reference"),
-                             3, device),
+            ms=time_ms(fwd, 50, device),
+            device_fn=fwd,
+            plain_ms=time_ms(lambda: fwd("reference"), 3, device),
             bound=bound_ms(rows * (22 + 3 * d) * esz + grid.n_tiles * 4 + p_total * (4 + esz * (1 + d)),
-                           visits * OPS_PER_VISIT["raster_fwd"] + p_total * 4 * d),
+                           visits * ops_per_visit + p_total * 4 * d),
         )
 
         g_vals = torch.rand(v_ref.shape, generator=gen, dtype=v_ref.dtype).to(device)
@@ -430,32 +475,37 @@ def check_kernels(scene, tiling, obs, device, say):
     return out
 
 
-def loss_and_grads(scene, sigma, tiling, obs, error_mode, impl, check_capacity=True):
+def loss_and_grads(scene, sigma, tiling, obs, error_mode, impl, check_capacity=True, with_z=False, weight=None,
+                   **kwargs):
+    """(out, loss, d loss/d ij, d loss/d colors[, z-buffer]) of the bench
+    loss, each pixel's term times ``weight`` (H, W) where given; ``kwargs``
+    go to render_scene."""
     from deodr_tpu_torch import render_scene
 
     ij = scene.ij.detach().clone().requires_grad_(True)
     colors = scene.colors.detach().clone().requires_grad_(True)
     s = dataclasses.replace(scene, ij=ij, colors=colors)
-    image, _, err = render_scene(
+    image, z_buffer, err = render_scene(
         s, sigma, antialiase_error=error_mode, obs=obs, aa_edge_capacity=AA_EDGE_CAPACITY, tiling=tiling,
-        impl=impl, check_capacity=check_capacity,
+        impl=impl, check_capacity=check_capacity, **kwargs,
     )
     out = err if error_mode else image
-    loss = out.sum() if error_mode else ((image - obs) ** 2).sum()
+    per_pixel = out if error_mode else ((image - obs) ** 2).sum(dim=-1)
+    loss = (per_pixel if weight is None else per_pixel * weight).sum()
     loss.backward()
-    return out.detach(), loss.detach(), ij.grad, colors.grad
+    return (out.detach(), loss.detach(), ij.grad, colors.grad) + ((z_buffer,) if with_z else ())
 
 
-def main_path(scene, tiling, obs, say):
-    """Phase 4: the main path on the kernels against impl='reference'."""
+def main_path(scene, tiling, obs, say, name="main path"):
+    """Phase 3: the main path on the kernels against impl='reference'."""
     for sigma in (0.0, 1.0):
         for error_mode in (False, True):
-            tag = f"sigma={sigma:g} {'error' if error_mode else 'image'} mode"
+            tag = f"{name} sigma={sigma:g} {'error' if error_mode else 'image'} mode"
             o_k, l_k, gij_k, gc_k = loss_and_grads(scene, sigma, tiling, obs, error_mode, "kernel")
             o_r, l_r, gij_r, gc_r = loss_and_grads(scene, sigma, tiling, obs, error_mode, "reference")
             check(all(bool(torch.isfinite(g).all()) for g in (gij_k, gc_k)), f"{tag}: non-finite gradients")
             e_o, e_ij, e_c = max_err(o_k, o_r), rel_err(gij_k, gij_r), rel_err(gc_k, gc_r)
-            say(f"main path {tag}: loss {float(l_k):.6f} vs {float(l_r):.6f}, out err {e_o:.3g} (limit 1e-4), "
+            say(f"{tag}: loss {float(l_k):.6f} vs {float(l_r):.6f}, out err {e_o:.3g} (limit 1e-4), "
                 f"grad ij err {e_ij:.3g}, grad colors err {e_c:.3g} of scale (limit 1e-3)")
             check(e_o <= 1e-4 and e_ij <= 1e-3 and e_c <= 1e-3, f"{tag}: kernels disagree with the plain versions")
 
@@ -643,27 +693,28 @@ def check_tex_kernels(scene, obs, device, say, plan=None):
 DUCK_PARAMS = ("ij", "uv", "shade", "texture")
 
 
-def duck_loss_and_grads(scene, obs, impl, check_capacity=False):
+def duck_loss_and_grads(scene, obs, impl, check_capacity=False, **kwargs):
     """The duck loss Σ (render − obs)² with its gradients to ij, uv, shade
-    and texture → (image, z-buffer, loss, gradients by name)."""
+    and texture → (image, z-buffer, loss, gradients by name); ``kwargs``
+    go to render_scene."""
     from deodr_tpu_torch import duck_scene as ds
     from deodr_tpu_torch import render_scene
 
     leaves = {k: getattr(scene, k).detach().clone().requires_grad_(True) for k in DUCK_PARAMS}
     image, z_buffer, _ = render_scene(
         dataclasses.replace(scene, **leaves), ds.DUCK_SIGMA, aa_edge_capacity=ds.DUCK_AA_EDGE_CAPACITY,
-        tiling=ds.DUCK_TILING, aa_tex_plan=ds.DUCK_TEX_PLAN, impl=impl, check_capacity=check_capacity,
+        tiling=ds.DUCK_TILING, aa_tex_plan=ds.DUCK_TEX_PLAN, impl=impl, check_capacity=check_capacity, **kwargs,
     )
     loss = ((image - obs) ** 2).sum()
     grads = torch.autograd.grad(loss, [leaves[k] for k in DUCK_PARAMS])
     return image.detach(), z_buffer, loss.detach(), dict(zip(DUCK_PARAMS, grads))
 
 
-def duck_main_path(scene, obs, say):
+def duck_main_path(scene, obs, say, **kwargs):
     """The duck's fwd+bwd on the kernels against impl='reference', every
     capacity of the plan checked."""
-    img_k, z_k, l_k, g_k = duck_loss_and_grads(scene, obs, "kernel", check_capacity=True)
-    img_r, z_r, l_r, g_r = duck_loss_and_grads(scene, obs, "reference", check_capacity=True)
+    img_k, z_k, l_k, g_k = duck_loss_and_grads(scene, obs, "kernel", check_capacity=True, **kwargs)
+    img_r, z_r, l_r, g_r = duck_loss_and_grads(scene, obs, "reference", check_capacity=True, **kwargs)
     fin = torch.isfinite(z_r)
     check(torch.equal(fin, torch.isfinite(z_k)), "duck: coverage differs from the plain versions")
     check(tuple(img_k.shape) == (scene.height, scene.width, 3) and bool(torch.isfinite(img_k).all()),
@@ -955,6 +1006,278 @@ def run_scene3d(device, say):
     return measured, launches, ms
 
 
+# ------------------------------ the untiled path and the remaining raster modes
+
+
+# card float32 against CPU float64: the z-buffer's bound. A triangle's depth plane z0·x + (z1·y + z2) is made from
+# float32 barycentric matrices and evaluated at pixel coordinates up to 511, and lands 1.3e-4 from float64 on
+# the bench scene (NVIDIA H100 80GB HBM3); float32 against float32 (the kernels against their plain versions)
+# the bound stays 1e-5
+LIMIT_Z_F32_VS_F64 = 1e-3
+# card float32 against CPU float64 on the untiled bench: the pixels where the two take different sides of a band's
+# or a triangle's edge (a jump of the blend, or another winner), as a share of the frame (79 of 262144 at σ = 1)
+MAX_F32_BOUNDARY_SHARE = 1e-3
+# σ = 0, untiled against tiled: the pixels where the rational range and the plane test may take different sides
+# of an edge (within ~2 ulp), as a share of the frame
+MAX_BOUNDARY_SHARE = 1e-4
+
+
+def to_cpu64(scene):
+    """``scene`` on the CPU in float64."""
+    return dataclasses.replace(scene, **{
+        f.name: v.to("cpu", torch.float64 if v.is_floating_point() else v.dtype)
+        for f in dataclasses.fields(scene) for v in [getattr(scene, f.name)] if isinstance(v, torch.Tensor)})
+
+
+def planner_window(scene, sigma):
+    """The sequential edge pass's window by the planner's rule
+    (``deodr_tpu_torch.scene.edge_window``): the largest band over the
+    active silhouette edges."""
+    from deodr_tpu_torch.ops.render import prepare
+    from deodr_tpu_torch.scene import edge_window
+
+    with torch.no_grad():
+        ij_off, signed_area, _, _ = prepare(scene)
+        active = (scene.edgeflags & (signed_area > 0)[:, None]).reshape(-1)
+        f = scene.faces
+        span = (ij_off[f[:, [1, 2, 0]].reshape(-1)] - ij_off[f[:, [0, 1, 2]].reshape(-1)]).abs() * active[:, None]
+    return edge_window(float(span[:, 1].max()), float(span[:, 0].max()), sigma, scene.height, scene.width)
+
+
+def check_against(tag, got, want, say, limit_out=1e-4, limit_z=1e-5, limit_grad=1e-3):
+    """Output, z-buffer (coverage equal) and gradients of ``got`` against
+    ``want``, each a dict with "out", "z" and gradients under other keys."""
+    fin = torch.isfinite(want["z"])
+    check(torch.equal(fin, torch.isfinite(got["z"].to(fin.device))), f"{tag}: coverage differs")
+    fin = fin.cpu()
+    e_o, e_z = max_err(got["out"].cpu(), want["out"].cpu()), max_err(got["z"].cpu()[fin], want["z"].cpu()[fin])
+    grads = [k for k in want if k not in ("out", "z")]
+    errs = {k: rel_err(got[k].cpu(), want[k].cpu()) for k in grads}
+    say(f"{tag}: out err {e_o:.3g} (limit {limit_out:g}), z err {e_z:.3g} (limit {limit_z:g}), covered pixels "
+        f"{int(fin.sum())}; gradient err of scale (limit {limit_grad:g}): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    check(all(bool(torch.isfinite(got[k]).all()) and float(got[k].abs().max()) > 0 for k in grads),
+          f"{tag}: a gradient is non-finite or all zero")
+    check(e_o <= limit_out and e_z <= limit_z and all(v <= limit_grad for v in errs.values()),
+          f"{tag}: outside its tolerance")
+
+
+def run_untiled_bench(scene, tiling, obs, device, say):
+    """Phase 6a; returns the median step ms per σ."""
+    from deodr_tpu_torch import render_scene
+    from deodr_tpu_torch.ops import kernels
+
+    window = planner_window(scene, 1.0)
+    say(f"untiled bench: aa_window={window} (the planner's rule)")
+    scene64, obs64 = to_cpu64(scene), obs.to("cpu", torch.float64)
+    card64 = dataclasses.replace(scene64, **{f.name: getattr(scene64, f.name).to(device)
+                                             for f in dataclasses.fields(scene64)
+                                             if isinstance(getattr(scene64, f.name), torch.Tensor)})
+
+    def run_once(s, o, sigma, error_mode, impl, weight=None):
+        out, _, g_ij, g_c, z = loss_and_grads(s, sigma, None, o, error_mode, impl, with_z=True, weight=weight,
+                                              aa_window=window)
+        return dict(out=out, z=z, ij=g_ij, colors=g_c)
+
+    kernels.reset_launches()
+    failures = []
+    for sigma in (0.0, 1.0):
+        for error_mode in (False, True):
+            tag = f"untiled bench sigma={sigma:g} {'error' if error_mode else 'image'} mode"
+            t0 = time.perf_counter()
+            want = run_once(scene64, obs64, sigma, error_mode, "reference")
+            say(f"{tag}: the CPU's float64 run took {time.perf_counter() - t0:.1f} s")
+            try:  # every mode's numbers are printed before a miss fails the run
+                check_against(f"{tag}, card float64 vs CPU float64", run_once(card64, obs64.to(device), sigma,
+                                                                            error_mode, "kernel"), want, say,
+                              1e-9, 1e-9, 1e-9)
+                got = run_once(scene, obs, sigma, error_mode, "kernel")
+                # pixels where float32 and float64 take different sides of a band's or a triangle's edge (a jump)
+                diff = (got["out"].cpu().double() - want["out"]).abs()
+                boundary = (diff.amax(dim=-1) if diff.ndim == 3 else diff) > 1e-4
+                boundary |= torch.isfinite(got["z"].cpu()) != torch.isfinite(want["z"])
+                n_b = int(boundary.sum())
+                say(f"{tag}, card float32 vs CPU float64: {n_b} boundary pixels (bound {MAX_F32_BOUNDARY_SHARE:g} "
+                    f"of {scene.height * scene.width}), left out of the loss on both sides")
+                check(n_b <= MAX_F32_BOUNDARY_SHARE * scene.height * scene.width, f"{tag}: too many boundary pixels")
+                if n_b:
+                    keep = (~boundary).double()
+                    got = run_once(scene, obs, sigma, error_mode, "kernel", keep.to(device, torch.float32))
+                    want = run_once(scene64, obs64, sigma, error_mode, "reference", keep)
+                    for d in (got, want):
+                        d["out"] = d["out"].cpu().double() * (keep if d["out"].ndim == 2 else keep[..., None])
+                        d["z"] = torch.where(boundary, 0.0, d["z"].cpu().double())
+                check_against(f"{tag}, card float32 vs CPU float64", got, want, say, limit_z=LIMIT_Z_F32_VS_F64)
+            except Failure as e:
+                failures.append(str(e))
+    check(not failures, "; ".join(failures))
+    launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    say(f"launches on the untiled path: {launched or 'none'} (its passes are plain PyTorch, as in the JAX package)")
+    check(not launched, "the untiled path launched a hand kernel")
+    with torch.no_grad():
+        img_u = render_scene(scene, 0.0)[0]
+        img_t = render_scene(scene, 0.0, tiling=tiling)[0]
+    differ = int(((img_u - img_t).abs().amax(dim=-1) > 1e-4).sum())
+    say(f"untiled against tiled at sigma=0: {differ} pixels differ by more than 1e-4 (bound "
+        f"{MAX_BOUNDARY_SHARE:g} of {scene.height * scene.width}: the rational and the plane coverage near an edge)")
+    check(differ <= MAX_BOUNDARY_SHARE * scene.height * scene.width, "untiled and tiled coverage differ too often")
+    ms = {}
+    for sigma in (0.0, 1.0):
+        def step(sigma=sigma):
+            loss_and_grads(scene, sigma, None, obs, False, "kernel", check_capacity=False, aa_window=window)
+
+        ms[sigma] = median_step_ms(step, device, reps=5)
+        say(f"untiled bench fwd+bwd step sigma={sigma:g}: median {ms[sigma]:.4f} ms (5 steps), "
+            f"{scene.height * scene.width / (ms[sigma] * 1e-3) / 1e6:.2f} Mpix/s")
+        profile_step(step, f"untiled bench sigma={sigma:g}", device, say, steps=1)
+    return ms
+
+
+def run_bench_nonstrict(scene, tiling, obs, device, say):
+    """Phase 6b; returns (measurements, launches, median step ms)."""
+    from deodr_tpu_torch.ops import kernels
+
+    scene = dataclasses.replace(scene, strict_edge=False)
+    measured = check_raster_kernels(scene, tiling, device, say, torch.Generator(device="cpu").manual_seed(6))
+    kernels.reset_launches()
+    main_path(scene, tiling, obs, say, name="non-strict bench")
+    launches = dict(kernels.LAUNCHES)
+    say(f"launches on the non-strict bench path: {launches}")
+    for name in ("raster_fwd", "raster_bwd", "edge_fwd", "edge_bwd"):
+        check(device.type != "cuda" or launches[name] > 0, f"{name} was never launched on the non-strict bench path")
+
+    def step():
+        loss_and_grads(scene, 1.0, tiling, obs, False, "kernel", check_capacity=False)
+
+    ms = median_step_ms(step, device)
+    say(f"non-strict bench fwd+bwd step sigma=1: median {ms:.4f} ms")
+    profile_step(step, "non-strict bench sigma=1", device, say)
+    return measured, launches, ms
+
+
+def run_duck_persp(device, say):
+    """Phase 6c; returns (measurements, launches, median step ms)."""
+    from deodr_tpu_torch import duck_scene as ds
+    from deodr_tpu_torch.ops import kernels
+
+    _, scene, obs = duck_setup(device)
+    scene = dataclasses.replace(scene, perspective_correct=True)
+    window = planner_window(scene, ds.DUCK_SIGMA)
+    say(f"perspective duck: aa_window={window} (the planner's rule)")
+    measured = check_raster_kernels(scene, ds.DUCK_TILING, device, say, torch.Generator(device="cpu").manual_seed(7))
+    kernels.reset_launches()
+    duck_main_path(scene, obs, say, aa_window=window)
+    launches = dict(kernels.LAUNCHES)
+    say(f"launches on the perspective duck's path: {launches} (its textured edges take the sequential pass)")
+    for name in ("raster_fwd", "raster_bwd"):
+        check(device.type != "cuda" or launches[name] > 0, f"{name} was never launched on the perspective duck")
+    check(launches["edge_tex_fwd"] == 0, "a perspective edge reached the textured edge kernel")
+
+    def step():
+        duck_loss_and_grads(scene, obs, "kernel", aa_window=window)
+
+    ms = median_step_ms(step, device, reps=3)
+    say(f"perspective duck fwd+bwd step: median {ms:.4f} ms (3 steps)")
+    profile_step(step, "perspective duck", device, say, steps=1)
+    return measured, launches, ms
+
+
+def torus_mesh(textured, n=8, m=12, tex_size=256, seed=0):
+    """A closed torus of 2·n·m faces (192 by default, under the 257 from
+    which the planner tiles), vertices jittered from ``seed``, with a
+    ``tex_size``² random texture over a seamed uv grid or per-vertex colors,
+    tilted by 55° and 10° → (ColoredTriMesh with float64 CPU vertices,
+    vertices as numpy)."""
+    from deodr_tpu_torch.geometry.mesh import ColoredTriMesh
+
+    rng = np.random.RandomState(seed)
+    tt, pp = np.meshgrid(2 * np.pi * np.arange(n) / n, 2 * np.pi * np.arange(m) / m, indexing="ij")
+    ring = 1 + 0.4 * np.cos(pp)
+    vertices = np.stack([ring * np.cos(tt), ring * np.sin(tt), 0.4 * np.sin(pp)], axis=-1).reshape(-1, 3)
+    vertices = vertices + rng.uniform(-0.01, 0.01, vertices.shape)
+    a, b = np.deg2rad(55.0), np.deg2rad(10.0)  # tilted, so that the view is oblique
+    rot = (np.array([[1, 0, 0], [0, np.cos(a), -np.sin(a)], [0, np.sin(a), np.cos(a)]])
+           @ np.array([[np.cos(b), -np.sin(b), 0], [np.sin(b), np.cos(b), 0], [0, 0, 1]]))
+    vertices = vertices @ rot.T
+    i, j = (a.ravel() for a in np.meshgrid(np.arange(n), np.arange(m), indexing="ij"))
+
+    def quads(vid):
+        return np.concatenate([np.stack([vid(i, j), vid(i + 1, j), vid(i + 1, j + 1)], 1),
+                               np.stack([vid(i, j), vid(i + 1, j + 1), vid(i, j + 1)], 1)]).astype(np.int32)
+
+    faces = quads(lambda a, b: (a % n) * m + b % m)
+    faces_uv = quads(lambda a, b: a * (m + 1) + b)
+    tri = vertices[faces]
+    if np.einsum("ij,ij->i", tri[:, 0], np.cross(tri[:, 1], tri[:, 2])).sum() < 0:
+        faces, faces_uv = faces[:, ::-1].copy(), faces_uv[:, ::-1].copy()
+    if textured:
+        ui, vj = np.meshgrid(np.arange(n + 1), np.arange(m + 1), indexing="ij")
+        uv = np.stack([ui.ravel() * 15.0 + 3.3, vj.ravel() * 20.0 + 2.7], axis=1)
+        kw = dict(faces_uv=faces_uv, uv=uv, texture=rng.rand(tex_size, tex_size, 3))
+    else:
+        kw = dict(colors=rng.rand(len(vertices), 3))
+    return ColoredTriMesh(faces, torch.from_numpy(vertices), **kw), vertices
+
+
+def run_scene3d_untiled(device, say):
+    """Phase 6d; returns the median step ms per mesh."""
+    from deodr_tpu_torch import duck_scene as ds
+    from deodr_tpu_torch.camera import default_camera
+    from deodr_tpu_torch.ops import kernels
+    from deodr_tpu_torch.scene import Scene3D
+
+    ms = {}
+    for textured in (True, False):
+        tag = f"Scene3D torus ({'textured' if textured else 'untextured'}, untiled)"
+        mesh, vertices = torus_mesh(textured)
+        camera = default_camera(ds.DUCK_WIDTH, ds.DUCK_HEIGHT, 60, vertices, np.diag([1.0, -1.0, -1.0]))
+        scenes = {}
+        for key, dev, dtype, impl in (("card", device, torch.float32, "kernel"), ("card64", device, torch.float64,
+                                                                                  "kernel"),
+                                      ("cpu", "cpu", torch.float64, "reference")):
+            m, _ = torus_mesh(textured)
+            m.set_vertices(m.vertices.to(dev, dtype))
+            scene = Scene3D(sigma=1.0, device=dev, impl=impl)
+            scene.set_mesh(m)
+            scene.set_light(np.array(ds.LIGHT_DIRECTIONAL), ds.LIGHT_AMBIENT)
+            scene.set_background_color(np.array(ds.BACKGROUND_COLOR))
+            scenes[key] = scene
+        plan = scenes["card"]._eager_plan(camera)
+        say(f"{tag}: {mesh.nb_faces} faces, plan aa_edge_capacity={plan[0]}, tiling={plan[1]}, aa_window={plan[2]}, "
+            f"aa_tex_window={plan[3]}")
+        check(plan[1] is None, f"{tag}: the plan has a tiling")
+        obs = torch.from_numpy(np.random.RandomState(8).rand(ds.DUCK_HEIGHT, ds.DUCK_WIDTH, 3))
+
+        def step(scene):
+            image, z = scene.render(camera, return_z_buffer=True, check_capacity=True)
+            scene.render_backward(2 * (image - obs.to(image.device, image.dtype)))
+            out = dict(out=image, z=z, vertices=scene.mesh._vertices_b, light_directional=scene.light_directional_b,
+                       light_ambient=scene.light_ambient_b)
+            if textured:
+                out.update(uv=scene.mesh.uv_b, texture=scene.mesh.texture_b)
+            else:
+                out.update(vertices_colors=scene.mesh.vertices_colors_b)
+            return out
+
+        kernels.reset_launches()
+        got = step(scenes["card"])
+        check(not any(kernels.LAUNCHES.values()), f"{tag}: a hand kernel was launched")
+        check(all(v.device.type == device.type and bool(torch.isfinite(v if k != "z" else v[torch.isfinite(v)]).all())
+                  for k, v in got.items()), f"{tag}: a result left the card or is not finite")
+        check(int(torch.isfinite(got["z"]).sum()) > 0.05 * ds.DUCK_WIDTH * ds.DUCK_HEIGHT,
+              f"{tag}: the torus covers under 5 % of the frame")
+        got64 = step(scenes["card64"])
+        t0 = time.perf_counter()
+        want = step(scenes["cpu"])
+        say(f"{tag}: the CPU's float64 reference took {time.perf_counter() - t0:.1f} s")
+        # in float64 on both: in float32 a band or texel edge falls on the other side at a few pixels
+        check_against(f"{tag}, card float64 vs CPU float64", got64, want, say, 1e-9, 1e-9, 1e-9)
+        ms[tag] = median_step_ms(lambda: step(scenes["card"]), device, reps=3)
+        say(f"{tag} step (render + render_backward): median {ms[tag]:.4f} ms (3 steps)")
+        profile_step(lambda: step(scenes["card"]), tag, device, say, steps=2)
+    return ms
+
+
 def run(device="cuda", height=512, width=512, n_tri=200, smi_line=None):
     """All phases; raises on any miss. Returns the kernels record and the
     step times. A smaller bench scene only serves a rehearsal on the CPU;
@@ -1010,9 +1333,16 @@ def run(device="cuda", height=512, width=512, n_tri=200, smi_line=None):
     measured.update(scene3d_measured)
     launches.update(scene3d_launches)
 
-    # 6. kernels line: one record per kernel and main path that launches it (the raster kernels
-    # run on all four, with 3 attribute planes on the bench scene and 7 on the duck), with the device
-    # times of every kernel and yardstick measured in one profiler session
+    # 6. the untiled path and the remaining raster modes
+    ms["untiled_bench"] = run_untiled_bench(scene, tiling, obs, device, say)
+    measured["bench_nonstrict"], launches["bench_nonstrict"], ms["bench_nonstrict"] = run_bench_nonstrict(
+        scene, tiling, obs, device, say)
+    measured["duck_persp"], launches["duck_persp"], ms["duck_persp"] = run_duck_persp(device, say)
+    ms["scene3d_untiled"] = run_scene3d_untiled(device, say)
+
+    # 7. kernels line: one record per kernel and main path that launches it (the raster kernels
+    # run on all six, with 3 attribute planes on the bench scene, 7 on the duck and 8 on the perspective
+    # duck), with the device times of every kernel and yardstick measured in one profiler session
     # key → (function, the hand kernel it launches): a wrapper launches the kernel of its name
     fns = {(id(m), f): (m[f], f"{name}_kernel") if f == "device_fn" else m[f]
            for per_kernel in measured.values() for name, m in per_kernel.items()

@@ -87,7 +87,16 @@ constexpr int kSetupW = 22;  // setup row width (see raster_kernel.py)
 // a finite depth. Every test is evaluated and the results are combined with
 // bitwise ands: short-circuit evaluation compiles to a chain of branches,
 // each waiting on its own shared-memory load, which set the walk's pace.
-template <typename T>
+// Persp: the depth is 1 / plane (the plane of 1/z); a pixel where it is not
+// finite is not covered. Strict rows only: the non-strict coverage takes
+// the x ranges of nonstrict_bounds.
+template <typename T, bool Persp>
+__device__ __forceinline__ T raster_depth(const T* r, T x, T y) {
+  const T zlin = plane3(r + 18, x, y);
+  return Persp ? (T)1 / zlin : zlin;
+}
+
+template <typename T, bool Persp>
 __device__ __forceinline__ bool raster_covers(const T* r, T x, T y, T& z) {
   const T neg_tiny = -Limits<T>::tiny();
   bool cov = false;
@@ -96,8 +105,57 @@ __device__ __forceinline__ bool raster_covers(const T* r, T x, T y, T& z) {
     cov |= (y >= r[p]) & (y <= r[2 + p]) & (plane3(r + 4 + 3 * p, x, y) > (T)0) &
            (plane3(r + 10 + 3 * p, x, y) > neg_tiny);
   }
-  z = plane3(r + 18, x, y);
+  z = raster_depth<T, Persp>(r, x, y);
   return cov & (x >= r[16]) & (x <= r[17]) & (r[21] > (T)0.5) & isfinite(z);
+}
+
+// max and min that return NaN where either operand is NaN, as torch.maximum
+// and torch.minimum do (fmax and fmin drop it).
+template <typename T>
+__device__ __forceinline__ T nan_max(T a, T b) {
+  return (a > b) | (a != a) ? a : b;
+}
+template <typename T>
+__device__ __forceinline__ T nan_min(T a, T b) {
+  return (a < b) | (a != a) ? a : b;
+}
+
+// The rational x range of a non-strict row (setup rows as triangle_row_setup
+// makes them, not sign-normalised), as _coverage_and_z's non-strict mode
+// computes it: sub-triangle p of row r covers x_begin_p ≤ x ≤ x_end_p on
+// pixel row y, with x_begin_p = max(x_lo, ceil_div(−(b·y + c), a, x_lo − 1,
+// x_hi)) of its left edge and x_end_p = min(x_hi, floor_div(...)) of its
+// right edge, and the den == 0 rules of floor_div / ceil_div. The four
+// bounds are uniform along a pixel row, so they are computed once per row:
+// lane L of each half-warp (one pixel row of the region, P = 1) computes
+// bound L & 3 of its row (sub-triangle (L >> 1) & 1, the left edge's
+// ceiling where L is even, the right edge's floor where odd), and every lane
+// reads the four of its row with shuffles. Every lane of the warp must call
+// it. b[0..3] = x_begin_0, x_end_0, x_begin_1, x_end_1.
+template <typename T>
+__device__ __forceinline__ void nonstrict_bounds(const T* r, T yrow, int lane, T (&b)[4]) {
+  const int p = (lane >> 1) & 1;
+  const bool right = lane & 1;
+  const T* eq = r + (right ? 10 : 4) + 3 * p;
+  const T num = -(eq[1] * yrow + eq[2]);
+  const T den = eq[0];
+  const T lo = r[16] - (T)1, hi = r[17];
+  const T quo = num / (den == (T)0 ? (T)1 : den);
+  T q = nan_min(nan_max(right ? floor(quo) : ceil(quo), lo), hi);
+  if (den == (T)0) q = (right ? num <= (T)0 : num < (T)0) ? hi : lo;
+  q = right ? nan_min(hi, q) : nan_max(r[16], q);
+  const int base = lane & 16;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) b[k] = __shfl_sync(kFullMask, q, base + k);
+}
+
+template <typename T, bool Persp>
+__device__ __forceinline__ bool raster_covers_nonstrict(const T* r, const T (&b)[4], T x, T y, T& z) {
+  bool cov = false;
+#pragma unroll
+  for (int p = 0; p < 2; ++p) cov |= (y >= r[p]) & (y <= r[2 + p]) & (x >= b[2 * p]) & (x <= b[2 * p + 1]);
+  z = raster_depth<T, Persp>(r, x, y);
+  return cov & (r[21] > (T)0.5) & isfinite(z);
 }
 
 // Whether setup row r may cover a pixel of the rectangle [x0, x1] × [y0, y1]:
@@ -107,8 +165,10 @@ __device__ __forceinline__ bool raster_covers(const T* r, T x, T y, T& z) {
 // pixel that passes lies inside both), and each edge plane is evaluated as
 // raster_covers evaluates it, at the clipped rectangle's corner that
 // maximises it; NaN culls, as it fails. Evaluated without branches, as
-// raster_covers is.
-template <typename T>
+// raster_covers is. Non-strict rows are not sign-normalised, so their cull
+// keeps the validity, x-range and y-range tests only (a superset of what
+// their rational ranges cover).
+template <typename T, bool Strict>
 __device__ __forceinline__ bool raster_may_cover(const T* r, T x0, T x1, T y0, T y1) {
   const T cx0 = fmax(x0, r[16]), cx1 = fmin(x1, r[17]);
   const T neg_tiny = -Limits<T>::tiny();
@@ -118,9 +178,12 @@ __device__ __forceinline__ bool raster_may_cover(const T* r, T x0, T x1, T y0, T
     const T cy0 = fmax(y0, r[p]), cy1 = fmin(y1, r[2 + p]);
     const T* le = r + 4 + 3 * p;
     const T* re = r + 10 + 3 * p;
-    may |= (y1 >= r[p]) & (y0 <= r[2 + p]) &
-           (plane3(le, le[0] >= (T)0 ? cx1 : cx0, le[1] >= (T)0 ? cy1 : cy0) > (T)0) &
-           (plane3(re, re[0] >= (T)0 ? cx1 : cx0, re[1] >= (T)0 ? cy1 : cy0) > neg_tiny);
+    bool ok = (y1 >= r[p]) & (y0 <= r[2 + p]);
+    if (Strict) {
+      ok &= (plane3(le, le[0] >= (T)0 ? cx1 : cx0, le[1] >= (T)0 ? cy1 : cy0) > (T)0) &
+            (plane3(re, re[0] >= (T)0 ? cx1 : cx0, re[1] >= (T)0 ? cy1 : cy0) > neg_tiny);
+    }
+    may |= ok;
   }
   return may & (r[21] > (T)0.5) & (x1 >= r[16]) & (x0 <= r[17]);
 }
@@ -129,9 +192,12 @@ __device__ __forceinline__ bool raster_may_cover(const T* r, T x0, T x1, T y0, T
 // z, best slot) of each of its P pixels over the slots its warp's region
 // may be covered by, in ascending order; a strict < keeps the lowest slot
 // on ties. The winner's D attribute planes are evaluated once at the end.
+// Strict (sign-normalised rows) and Persp (z = 1 / plane) are the modes of
+// the TPU kernel's _coverage_and_z; the strict, affine instantiation is the
+// kernel of the main path.
 constexpr int kRasterFwdPixels = 1;  // P, a lane's pixels: RASTER_FWD_PIXELS in raster_kernel.py
 
-template <typename T>
+template <typename T, bool Strict, bool Persp>
 __global__ void __launch_bounds__(kThreads)
     raster_fwd_kernel(const T* __restrict__ setup, const T* __restrict__ affine, const int* __restrict__ counts,
                       int n_tx, int tile_h, int tile_w, int cap, int d, int blocks_per_tile, int* __restrict__ slot_map,
@@ -153,14 +219,25 @@ __global__ void __launch_bounds__(kThreads)
   region_rect(w.tile, w.g, w.region, n_tx, tile_h, tile_w, rect);
   fwd_chunks<T, kSetupW>(
       setup + (size_t)w.tile * cap * kSetupW, count, w.valid,
-      [&](const T* r) { return raster_may_cover(r, rect[0], rect[1], rect[2], rect[3]); },
+      [&](const T* r) { return raster_may_cover<T, Strict>(r, rect[0], rect[1], rect[2], rect[3]); },
       [&](const T* r, int slot) {
+        if constexpr (Strict) {
 #pragma unroll
-        for (int j = 0; j < P; ++j) {
+          for (int j = 0; j < P; ++j) {
+            T z;
+            if (raster_covers<T, Persp>(r, x[j], y[j], z) && z < best_z[j]) {
+              best_z[j] = z;
+              best[j] = slot;
+            }
+          }
+        } else {
+          static_assert(P == 1, "nonstrict_bounds shares a pixel row's bounds across a half-warp");
+          T b[4];
+          nonstrict_bounds(r, rect[2] + (T)((threadIdx.x & 31) >> 4), threadIdx.x & 31, b);
           T z;
-          if (raster_covers(r, x[j], y[j], z) && z < best_z[j]) {
-            best_z[j] = z;
-            best[j] = slot;
+          if (raster_covers_nonstrict<T, Persp>(r, b, x[0], y[0], z) && z < best_z[0]) {
+            best_z[0] = z;
+            best[0] = slot;
           }
         }
       });
@@ -292,17 +369,27 @@ __global__ void __launch_bounds__(kThreads)
   cluster.sync();  // no block leaves while another still reads its shared memory
 }
 
-template <typename T>
-static int raster_fwd_launch(const void* setup, const void* affine, const void* counts, int n_tiles, int n_tx,
+template <typename T, bool Strict, bool Persp>
+static void raster_fwd_start(const void* setup, const void* affine, const void* counts, int n_tiles, int n_tx,
                              int tile_h, int tile_w, int cap, int d, int threads, int blocks_per_tile, int smem_bytes,
                              void* slot_map, void* z, void* vals, void* stream) {
+  raster_fwd_kernel<T, Strict, Persp><<<n_tiles * blocks_per_tile, threads, smem_bytes, (cudaStream_t)stream>>>(
+      (const T*)setup, (const T*)affine, (const int*)counts, n_tx, tile_h, tile_w, cap, d, blocks_per_tile,
+      (int*)slot_map, (T*)z, (T*)vals);
+}
+
+template <typename T>
+static int raster_fwd_launch(const void* setup, const void* affine, const void* counts, int n_tiles, int n_tx,
+                             int tile_h, int tile_w, int cap, int d, int strict, int persp, int threads,
+                             int blocks_per_tile, int smem_bytes, void* slot_map, void* z, void* vals, void* stream) {
   if (n_tiles == 0 || tile_h * tile_w == 0) return 0;
   if (!fwd_shape_ok(tile_h, tile_w, threads, blocks_per_tile, kRasterFwdPixels, (size_t)smem_bytes,
                     kSetupW * sizeof(T)))
     return (int)cudaErrorInvalidValue;
-  raster_fwd_kernel<T><<<n_tiles * blocks_per_tile, threads, smem_bytes, (cudaStream_t)stream>>>(
-      (const T*)setup, (const T*)affine, (const int*)counts, n_tx, tile_h, tile_w, cap, d, blocks_per_tile,
-      (int*)slot_map, (T*)z, (T*)vals);
+  auto start = strict ? (persp ? raster_fwd_start<T, true, true> : raster_fwd_start<T, true, false>)
+                      : (persp ? raster_fwd_start<T, false, true> : raster_fwd_start<T, false, false>);
+  start(setup, affine, counts, n_tiles, n_tx, tile_h, tile_w, cap, d, threads, blocks_per_tile, smem_bytes, slot_map,
+        z, vals, stream);
   return (int)cudaGetLastError();
 }
 
@@ -324,17 +411,17 @@ extern "C" {
 const char* deodr_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 int raster_fwd_f32(const void* setup, const void* affine, const void* counts, int n_tiles, int n_tx, int tile_h,
-                   int tile_w, int cap, int d, int threads, int blocks_per_tile, int smem_bytes, void* slot_map,
-                   void* z, void* vals, void* stream) {
-  return deodr::raster_fwd_launch<float>(setup, affine, counts, n_tiles, n_tx, tile_h, tile_w, cap, d, threads,
-                                         blocks_per_tile, smem_bytes, slot_map, z, vals, stream);
+                   int tile_w, int cap, int d, int strict, int persp, int threads, int blocks_per_tile, int smem_bytes,
+                   void* slot_map, void* z, void* vals, void* stream) {
+  return deodr::raster_fwd_launch<float>(setup, affine, counts, n_tiles, n_tx, tile_h, tile_w, cap, d, strict, persp,
+                                         threads, blocks_per_tile, smem_bytes, slot_map, z, vals, stream);
 }
 
 int raster_fwd_f64(const void* setup, const void* affine, const void* counts, int n_tiles, int n_tx, int tile_h,
-                   int tile_w, int cap, int d, int threads, int blocks_per_tile, int smem_bytes, void* slot_map,
-                   void* z, void* vals, void* stream) {
-  return deodr::raster_fwd_launch<double>(setup, affine, counts, n_tiles, n_tx, tile_h, tile_w, cap, d, threads,
-                                          blocks_per_tile, smem_bytes, slot_map, z, vals, stream);
+                   int tile_w, int cap, int d, int strict, int persp, int threads, int blocks_per_tile, int smem_bytes,
+                   void* slot_map, void* z, void* vals, void* stream) {
+  return deodr::raster_fwd_launch<double>(setup, affine, counts, n_tiles, n_tx, tile_h, tile_w, cap, d, strict,
+                                          persp, threads, blocks_per_tile, smem_bytes, slot_map, z, vals, stream);
 }
 
 int raster_bwd_f32(const void* slot_map, const void* g_vals, const void* counts, int n_tiles, int n_tx, int tile_h,

@@ -42,6 +42,30 @@ def inv3x3(m: torch.Tensor) -> torch.Tensor:
     return adj / det[..., None, None]
 
 
+def floor_div(num: torch.Tensor, den: torch.Tensor, lo, hi) -> torch.Tensor:
+    """min(hi, max(lo, floor(num / den))) with the reference's den == 0
+    rule: ``hi`` where num ≤ 0, else ``lo`` (the JAX package's
+    ``floor_div``; NaN propagates as there)."""
+    q = torch.floor(num / torch.where(den == 0, 1.0, den))
+    q = torch.minimum(torch.maximum(q, _as(lo, q)), _as(hi, q))
+    return torch.where(den == 0, torch.where(num <= 0, _as(hi, q), _as(lo, q)), q)
+
+
+def ceil_div(num: torch.Tensor, den: torch.Tensor, lo, hi) -> torch.Tensor:
+    """min(hi, max(lo, ceil(num / den))) with the reference's den == 0
+    rule: ``hi`` where num < 0, else ``lo`` (the JAX package's
+    ``ceil_div``)."""
+    q = torch.ceil(num / torch.where(den == 0, 1.0, den))
+    q = torch.minimum(torch.maximum(q, _as(lo, q)), _as(hi, q))
+    return torch.where(den == 0, torch.where(num < 0, _as(hi, q), _as(lo, q)), q)
+
+
+def _as(v, like: torch.Tensor) -> torch.Tensor:
+    """``v`` (a tensor or a Python number) as a tensor of ``like``'s dtype
+    and device, for the NaN-propagating ``torch.maximum`` / ``minimum``."""
+    return v if isinstance(v, torch.Tensor) else torch.tensor(v, dtype=like.dtype, device=like.device)
+
+
 def edge_equations(v_xy: torch.Tensor, local_clockwise: torch.Tensor) -> torch.Tensor:
     """Per-triangle edge line equations a·x + b·y + c = 0, interior on the
     positive side, for edges (v0,v1), (v1,v2), (v2,v0).

@@ -50,9 +50,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name → argument types (all return cudaError_t as int)
 _SIGNATURES = {
-    # setup, affine, counts, n_tiles, n_tx, tile_h, tile_w, cap, d, threads, blocks_per_tile, smem_bytes,
-    # slot_map, z, vals, stream
-    "raster_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    # setup, affine, counts, n_tiles, n_tx, tile_h, tile_w, cap, d, strict, persp, threads, blocks_per_tile,
+    # smem_bytes, slot_map, z, vals, stream
+    "raster_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     # slot_map, g_vals, counts, n_tiles, n_tx, tile_h, tile_w, cap, d, threads, blocks_per_tile, g_table, stream
     "raster_bwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     # table, counts, zbuf, obs, buf_in, n_tiles, n_tx, tile_h, tile_w, cap, C, err,

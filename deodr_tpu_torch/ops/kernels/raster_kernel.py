@@ -33,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from deodr_tpu_torch.ops import kernels
+from deodr_tpu_torch.ops.common import ceil_div, floor_div
 from deodr_tpu_torch.ops.kernels import TileGrid, from_tiles, tile_coords, to_tiles
 
 _S_YLO, _S_YHI = 0, 2
@@ -83,23 +84,41 @@ def raster_fwd_launch_shape(tile_h: int, tile_w: int, itemsize: int) -> kernels.
     return kernels.fwd_launch_shape(tile_h, tile_w, RASTER_FWD_PIXELS, SETUP_WIDTH, itemsize)
 
 
-def _coverage(row, yy, xx, neg_tiny):
+def _coverage(row, yy, xx, neg_tiny, strict=True, persp=False):
     """The forward's coverage predicate and depth of setup rows ``row``
-    (..., 22, 1, 1) at pixels (yy, xx), in the kernel's operation order."""
-    def plane(j):
-        return row[..., j, :, :] * xx + (row[..., j + 1, :, :] * yy + row[..., j + 2, :, :])
+    (..., 22, 1, 1) at pixels (yy, xx), in the kernel's operation order.
+    ``strict``: the sign-normalised edge planes, left > 0 and right > −tiny
+    (``_pack_setup_rows``); else the rows' own edge equations with the
+    rational x range of ``_coverage_and_z``'s non-strict mode, per pixel row.
+    ``persp``: the depth is 1 / plane, and a pixel where it is not finite is
+    not covered."""
+    def r(j):
+        return row[..., j, :, :]
 
+    def plane(j):
+        return r(j) * xx + (r(j + 1) * yy + r(j + 2))
+
+    x_lo, x_hi = r(_S_XLO), r(_S_XHI)
     cov = None
     for p in range(2):
-        row_ok = (yy >= row[..., _S_YLO + p, :, :]) & (yy <= row[..., _S_YHI + p, :, :])
-        ok = row_ok & (plane(_S_LEQ + 3 * p) > 0.0) & (plane(_S_REQ + 3 * p) > neg_tiny)
+        row_ok = (yy >= r(_S_YLO + p)) & (yy <= r(_S_YHI + p))
+        le, re = _S_LEQ + 3 * p, _S_REQ + 3 * p
+        if strict:
+            ok = row_ok & (plane(le) > 0.0) & (plane(re) > neg_tiny)
+        else:
+            t_l = ceil_div(-(r(le + 1) * yy + r(le + 2)), r(le), x_lo - 1, x_hi)
+            t_r = floor_div(-(r(re + 1) * yy + r(re + 2)), r(re), x_lo - 1, x_hi)
+            ok = row_ok & (xx >= torch.maximum(x_lo, t_l)) & (xx <= torch.minimum(x_hi, t_r))
         cov = ok if cov is None else cov | ok
-    cov = cov & (xx >= row[..., _S_XLO, :, :]) & (xx <= row[..., _S_XHI, :, :])
+    if strict:
+        cov = cov & (xx >= x_lo) & (xx <= x_hi)
     z = plane(_S_Z)
-    return cov & (row[..., _S_VALID, :, :] > 0.5) & torch.isfinite(z), z
+    if persp:
+        z = 1.0 / z
+    return cov & (r(_S_VALID) > 0.5) & torch.isfinite(z), z
 
 
-def covered_visits(setup_tile, counts, grid: TileGrid) -> int:
+def covered_visits(setup_tile, counts, grid: TileGrid, strict: bool = True, persp: bool = False) -> int:
     """Number of (pixel, slot) pairs at which a slot's row covers the pixel
     (the coverage predicate of :func:`raster_fwd_reference`): the pairs whose
     coverage test has to be made pixel by pixel. Every other pair fails on
@@ -111,20 +130,22 @@ def covered_visits(setup_tile, counts, grid: TileGrid) -> int:
     neg_tiny = -torch.finfo(setup_tile.dtype).tiny
     n = torch.zeros((), dtype=torch.int64, device=setup_tile.device)
     for k in range(int(count.max()) if nt else 0):
-        cov, _ = _coverage(setup_tile[:, k, :, None, None], yy, xx, neg_tiny)
+        cov, _ = _coverage(setup_tile[:, k, :, None, None], yy, xx, neg_tiny, strict, persp)
         n += (cov & (k < count)[:, None, None]).sum()
     return int(n)
 
 
-def raster_may_cover(rows, x0, x1, y0, y1):
+def raster_may_cover(rows, x0, x1, y0, y1, strict=True):
     """Plain mirror of ``raster_may_cover`` (csrc/raster_kernel.cu), the
     forward kernel's region cull: whether a setup row may cover a pixel of
     the rectangle [x0, x1] × [y0, y1], false only where no pixel there passes
-    the validity, x-range, y-range and edge-plane tests. The rectangle is
-    clipped to the row's x range and each sub-triangle's y range, and each
-    plane is evaluated in the kernel's operation order at the clipped
-    rectangle's corner that maximises it. ``rows`` (..., 22) broadcasts
-    against the rectangle's bounds (...)."""
+    the validity, x-range, y-range and (``strict``) edge-plane tests. The
+    rectangle is clipped to the row's x range and each sub-triangle's y
+    range, and each plane is evaluated in the kernel's operation order at
+    the clipped rectangle's corner that maximises it. Non-strict rows are
+    not sign-normalised, so their cull keeps the validity, x-range and
+    y-range tests only (a superset of what their rational ranges cover).
+    ``rows`` (..., 22) broadcasts against the rectangle's bounds (...)."""
     neg_tiny = -torch.finfo(rows.dtype).tiny
     x_lo, x_hi = rows[..., _S_XLO], rows[..., _S_XHI]
     may_row = (rows[..., _S_VALID] > 0.5) & (x1 >= x_lo) & (x0 <= x_hi)
@@ -134,7 +155,7 @@ def raster_may_cover(rows, x0, x1, y0, y1):
         y_lo, y_hi = rows[..., _S_YLO + p], rows[..., _S_YHI + p]
         cy0, cy1 = torch.fmax(y0, y_lo), torch.fmin(y1, y_hi)
         ok = (y1 >= y_lo) & (y0 <= y_hi)
-        for j, threshold in ((_S_LEQ + 3 * p, 0.0), (_S_REQ + 3 * p, neg_tiny)):
+        for j, threshold in ((_S_LEQ + 3 * p, 0.0), (_S_REQ + 3 * p, neg_tiny)) if strict else ():
             a, b, c = rows[..., j], rows[..., j + 1], rows[..., j + 2]
             x = torch.where(a >= 0, cx1, cx0)
             y = torch.where(b >= 0, cy1, cy0)
@@ -143,14 +164,18 @@ def raster_may_cover(rows, x0, x1, y0, y1):
     return may_row & may
 
 
-def region_cull(setup_tile, counts, grid: TileGrid):
+def region_cull(setup_tile, counts, grid: TileGrid, strict: bool = True):
     """(n_tiles, regions, cap) bool: the (warp region, slot) pairs that the
     forward kernel's cull (:func:`raster_may_cover`) keeps."""
-    return kernels.region_cull(raster_may_cover, setup_tile, counts, grid, RASTER_FWD_PIXELS)
+    def may_cover(rows, x0, x1, y0, y1):
+        return raster_may_cover(rows, x0, x1, y0, y1, strict)
+
+    return kernels.region_cull(may_cover, setup_tile, counts, grid, RASTER_FWD_PIXELS)
 
 
-def raster_fwd_reference(setup_tile, affine_tile, counts, grid: TileGrid):
-    """Plain version of the forward kernel; differentiable in
+def raster_fwd_reference(setup_tile, affine_tile, counts, grid: TileGrid, strict: bool = True, persp: bool = False):
+    """Plain version of the forward kernel in the coverage mode ``strict``
+    and depth mode ``persp`` (see :func:`_coverage`); differentiable in
     ``affine_tile`` by autograd."""
     nt, cap, _ = setup_tile.shape
     d = affine_tile.shape[2] // 3
@@ -163,7 +188,7 @@ def raster_fwd_reference(setup_tile, affine_tile, counts, grid: TileGrid):
     best = torch.full((nt, th, tw), cap, dtype=torch.int32, device=device)
     n_iter = int(count.max()) if nt else 0
     for k in range(n_iter):
-        cov, z = _coverage(setup_tile[:, k, :, None, None], yy, xx, neg_tiny)
+        cov, z = _coverage(setup_tile[:, k, :, None, None], yy, xx, neg_tiny, strict, persp)
         better = cov & (k < count)[:, None, None] & (z < best_z)
         best_z = torch.where(better, z, best_z)
         best = torch.where(better, k, best)
@@ -204,11 +229,14 @@ def raster_bwd_reference(slot_map, g_vals, counts, grid: TileGrid, cap: int):
     return g_table
 
 
-def raster_fwd(setup_tile, affine_tile, counts, grid: TileGrid, impl: str = "kernel"):
-    """Forward solid pass → (slot_map, z, vals) in the padded layout; the
+def raster_fwd(setup_tile, affine_tile, counts, grid: TileGrid, impl: str = "kernel", strict: bool = True,
+               persp: bool = False):
+    """Forward solid pass → (slot_map, z, vals) in the padded layout, in the
+    coverage mode ``strict`` (sign-normalised setup rows, else the rational
+    non-strict range) and the depth mode ``persp`` (z = 1 / plane); the
     kernel is launched in the shape of :func:`raster_fwd_launch_shape`."""
     if not kernels.use_kernel(affine_tile, impl):
-        return raster_fwd_reference(setup_tile, affine_tile, counts, grid)
+        return raster_fwd_reference(setup_tile, affine_tile, counts, grid, strict, persp)
     kernels.check_float(affine_tile, "affine_tile")
     dtype = affine_tile.dtype
     nt, cap = grid.n_tiles, setup_tile.shape[1]
@@ -225,7 +253,7 @@ def raster_fwd(setup_tile, affine_tile, counts, grid: TileGrid, impl: str = "ker
     kernels.launch(
         "raster_fwd", dtype,
         setup_tile.data_ptr(), affine_tile.data_ptr(), counts.data_ptr(),
-        nt, grid.n_tx, grid.tile_h, grid.tile_w, cap, d, *shape,
+        nt, grid.n_tx, grid.tile_h, grid.tile_w, cap, d, int(strict), int(persp), *shape,
         slot_map.data_ptr(), z.data_ptr(), vals.data_ptr(),
     )
     return slot_map, z, vals
@@ -256,8 +284,8 @@ def raster_bwd(slot_map, g_vals, counts, grid: TileGrid, cap: int, impl: str = "
 
 class _RasterEval(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, affine_tile, setup_tile, counts, grid, impl):
-        slot_map, z, vals = raster_fwd(setup_tile, affine_tile, counts, grid, impl)
+    def forward(ctx, affine_tile, setup_tile, counts, grid, impl, strict, persp):
+        slot_map, z, vals = raster_fwd(setup_tile, affine_tile, counts, grid, impl, strict, persp)
         ctx.save_for_backward(slot_map, counts)
         ctx.grid, ctx.impl, ctx.cap = grid, impl, affine_tile.shape[1]
         ctx.mark_non_differentiable(slot_map, z)
@@ -267,10 +295,12 @@ class _RasterEval(torch.autograd.Function):
     def backward(ctx, _g_slot, _g_z, g_vals):
         slot_map, counts = ctx.saved_tensors
         g_table = raster_bwd(slot_map, g_vals.contiguous(), counts, ctx.grid, ctx.cap, ctx.impl)
-        return g_table, None, None, None, None
+        return g_table, None, None, None, None, None, None
 
 
-def raster_eval(affine_tile, setup_tile, counts, grid: TileGrid, impl: str = "kernel"):
+def raster_eval(affine_tile, setup_tile, counts, grid: TileGrid, impl: str = "kernel", strict: bool = True,
+                persp: bool = False):
     """Differentiable solid pass (gradient to ``affine_tile`` only) →
-    (slot_map, z, vals)."""
-    return _RasterEval.apply(affine_tile, setup_tile, counts, grid, impl)
+    (slot_map, z, vals), in the modes of :func:`raster_fwd`. The backward
+    reads the slot map alone, so both modes share it."""
+    return _RasterEval.apply(affine_tile, setup_tile, counts, grid, impl, strict, persp)

@@ -1,12 +1,14 @@
 """Full scene rendering: solid pass + silhouette edge-overdraw pass.
 
-PyTorch counterpart of ``deodr_tpu/ops/render.py``, tiled branch: one
-function, differentiable by autograd with respect to the vertex positions
-(``ij``), the per-vertex colors, the texture coordinates (``uv``), the
-Gouraud ``shade``, the ``texture`` and the background. It renders
-untextured, textured and mixed scenes that are not perspective-correct,
-with ``strict_edge``; the other modes belong to later parts of the port and
-raise ``NotImplementedError``.
+PyTorch counterpart of ``deodr_tpu/ops/render.py``: one function,
+differentiable by autograd with respect to the vertex positions (``ij``),
+the depths (through perspective-correct interpolation), the per-vertex
+colors, the texture coordinates (``uv``), the Gouraud ``shade``, the
+``texture`` and the background, for untextured, textured and mixed scenes,
+tiled or not, with or without ``strict_edge`` and perspective correction;
+and ``validate_capacities``, the binning-only check of a plan's capacities.
+Only the large-mesh binners (``pair_*`` and ``super_*`` tilings) belong to a
+later part of the port and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -18,11 +20,15 @@ import numpy as np
 import torch
 
 from deodr_tpu_torch.ops.common import sum3
-from deodr_tpu_torch.ops.edge_aa import EdgeAAConfig, EdgeData
+from deodr_tpu_torch.ops.edge_aa import EdgeAAConfig, EdgeData, edge_overdraw_pass
+from deodr_tpu_torch.ops.raster import find_winners, shade_pixels, triangle_row_setup
 from deodr_tpu_torch.ops.tiled import (
     EdgeTexPlan,
     TilingConfig,
     _compact_index_perm,
+    _edge_band_tile_mask,
+    _grid,
+    _occupancy_counts,
     edge_pass_tiled_kernel,
     edge_pass_tiled_kernel_tex,
     rasterize_tiled_kernel,
@@ -122,28 +128,6 @@ def prepare(scene: SceneBuffers):
     return ij_off, signed_area_v, draw, background
 
 
-def _refuse_off_slice(scene: SceneBuffers, sigma, tiling, aa_tex_plan):
-    """Raise for what needs the untiled (sequential) passes, which this
-    package does not have yet. Those are the only passes that read
-    ``aa_window`` and ``aa_tex_window``: every route that gets past here
-    ignores them, as the JAX package's tiled routes do."""
-    if tiling is None:
-        raise NotImplementedError("the untiled path (tiling=None) comes with the untiled-renderer slice")
-    if scene.perspective_correct:
-        raise NotImplementedError(
-            "perspective-correct interpolation comes with the untiled-renderer slice (its edge pass is sequential)"
-        )
-    if not scene.strict_edge:
-        raise NotImplementedError("strict_edge=False comes with the untiled-renderer slice")
-    if scene.texture is not None and sigma > 0 and aa_tex_plan is None:
-        raise NotImplementedError(
-            "a textured scene at sigma > 0 needs aa_tex_plan (an EdgeTexPlan) for the tiled textured edge pass; "
-            "without one it takes the sequential pass of the untiled-renderer slice"
-        )
-    if scene.texture is not None and scene.texture.shape[2] != scene.colors.shape[1]:
-        raise ValueError("texture and colors must have the same number of channels")
-
-
 def render_scene(
     scene: SceneBuffers,
     sigma: float,
@@ -156,19 +140,30 @@ def render_scene(
     aa_tex_window: Optional[tuple] = None,
     aa_tex_plan: Optional[EdgeTexPlan] = None,
     check_capacity: bool = False,
+    chunk: int = 64,
 ):
     """Render a 2.5D scene on the scene tensors' device.
 
     Returns (image (H, W, C), z_buffer (H, W), err_buffer (H, W) or None);
     ``err_buffer`` is the antialiased squared residual against ``obs`` when
-    ``antialiase_error``. ``impl="kernel"`` runs the CUDA kernels on a CUDA
-    scene (a CPU scene always takes their plain versions);
-    ``impl="reference"`` takes the plain versions on any device. A scene
-    with a texture needs ``aa_tex_plan`` at ``sigma > 0``: its silhouette
-    bands are split and compacted as the plan says and blended by the
-    textured edge kernel. ``aa_window`` and ``aa_tex_window`` bound the
-    sequential edge pass of the untiled slice; the tiled routes here ignore
-    them, so a plan made for either route can be passed.
+    ``antialiase_error``. The routes are the JAX package's:
+
+    - the solid pass: with ``tiling``, binned and resolved by the raster
+      kernel (``impl="kernel"`` runs the CUDA kernels on a CUDA scene; a CPU
+      scene, or ``impl="reference"``, takes their plain versions); without,
+      the untiled pass (``find_winners`` over chunks of ``chunk``
+      triangles, then ``shade_pixels``);
+    - the edge pass at ``sigma > 0``: the tiled edge kernel for an
+      untextured scene, the tiled textured edge kernel for a textured one
+      with ``aa_tex_plan`` (its bands split and compacted as the plan
+      says), both only for a tiling and without perspective correction;
+      everything else takes the sequential pass
+      (:func:`deodr_tpu_torch.ops.edge_aa.edge_overdraw_pass`), restricted
+      to ``aa_window``-shaped windows when given. (The JAX package sends an
+      untextured perspective-correct tiled scene to its XLA tiled pass,
+      which matches its sequential pass.) ``aa_tex_window`` bounds the
+      texels of the JAX package's windowed pass on a TPU; here every texel
+      is read where it lies, so it changes nothing.
 
     Bins that overflow a capacity of ``tiling`` (or ``aa_edge_capacity``, or
     the plan's ``seg_capacity``; the texture fetch's ``tex_tile_capacity``
@@ -176,13 +171,22 @@ def render_scene(
     raises ``RuntimeError`` naming the bin instead, at the cost of a host
     synchronisation per check.
     """
-    _refuse_off_slice(scene, sigma, tiling, aa_tex_plan)
+    if scene.texture is not None and scene.texture.shape[2] != scene.colors.shape[1]:
+        raise ValueError("texture and colors must have the same number of channels")
     checks: Optional[list] = [] if check_capacity else None
     ij_off, signed_area_v, draw, background = prepare(scene)
+    persp = scene.perspective_correct
 
-    image, z_buffer, solid_max = rasterize_tiled_kernel(scene, ij_off, draw, background, tiling, impl, checks)
-    if checks is not None:
-        checks.append(("solid tile bin", solid_max, tiling.triangle_capacity))
+    if tiling is not None:
+        image, z_buffer, solid_max = rasterize_tiled_kernel(scene, ij_off, draw, background, tiling, impl, checks)
+        if checks is not None:
+            checks.append(("solid tile bin", solid_max, tiling.triangle_capacity))
+    else:
+        faces = scene.faces
+        winner, z_buffer = find_winners(ij_off[faces], scene.depths[faces], draw, scene.width, scene.height,
+                                        scene.strict_edge, persp, chunk)
+        image = shade_pixels(winner, ij_off, scene.depths, faces, scene.faces_uv, scene.colors, scene.uv,
+                             scene.shade, scene.textured, scene.shaded, scene.texture, background, persp)
     z_buffer = z_buffer.detach()
 
     err_buffer = None
@@ -194,29 +198,111 @@ def render_scene(
     if sigma > 0:
         edges = _build_edge_data(scene, ij_off, signed_area_v, aa_edge_capacity, checks)
         cfg = EdgeAAConfig(scene.height, scene.width, float(sigma), bool(scene.clockwise), bool(antialiase_error),
-                           scene.texture is not None)
+                           scene.texture is not None, persp)
         buffer = err_buffer if antialiase_error else image
-        if cfg.has_texture:
+        edge_max = None
+        if tiling is not None and not persp and cfg.has_texture and aa_tex_plan is not None:
             buffer, edge_max = edge_pass_tiled_kernel_tex(
                 cfg, buffer, edges, scene.texture, z_buffer, obs, tiling, aa_tex_plan, impl, checks
             )
-        else:
+        elif tiling is not None and not persp and not cfg.has_texture:
             buffer, edge_max = edge_pass_tiled_kernel(cfg, buffer, edges, z_buffer, obs, tiling, impl)
+        else:
+            buffer = edge_overdraw_pass(cfg, buffer, edges, scene.texture, z_buffer, obs, aa_window)
         if antialiase_error:
             err_buffer = buffer
         else:
             image = buffer
-        if checks is not None:
+        if checks is not None and edge_max is not None:
             checks.append(("edge tile bin", edge_max, tiling.edge_capacity))
 
-    for label, count, capacity in checks or ():
+    _raise_overflows(checks or ())
+    return image, z_buffer, err_buffer
+
+
+def _raise_overflows(checks) -> None:
+    """Raise ``RuntimeError`` for the first (label, count, capacity) whose
+    count exceeds its capacity (one host read per check)."""
+    for label, count, capacity in checks:
         count = int(count)
         if count > capacity:
             raise RuntimeError(
                 f"{label} overflow: occupancy {count} exceeds static capacity {capacity}; entries were "
                 "dropped — raise the capacity in TilingConfig / aa_edge_capacity / the plan (see suggest_tiling)"
             )
-    return image, z_buffer, err_buffer
+
+
+# the capacity classes of validate_capacities, in the order of its ``caps``
+CAPACITY_CLASSES = (
+    "AA edge compaction", "solid tile bin", "edge tile bin", "supertile bin", "drawn-triangle compaction",
+    "texture tile compaction", "texture-window segment compaction",
+)
+
+
+def validate_capacities(scene: SceneBuffers, sigma: float, caps, tile_h: int, tile_w: int, edge_tile_h: int = 0,
+                        super_shape=(0, 0), tex_block_w: int = 0, uv_segment_length: float = 0.0,
+                        uv_n_split: int = 1, raise_on_overflow: bool = True):
+    """The bin and compaction counts of a render, from the binning alone
+    (no per-pixel work), held against ``caps`` → (counts, ok): ``counts`` a
+    dict of :data:`CAPACITY_CLASSES` to int, ``ok`` whether each count is
+    within its capacity. With ``raise_on_overflow`` an overflow raises
+    ``RuntimeError`` naming the class instead, as ``render_scene(...,
+    check_capacity=True)`` does. Counterpart of the JAX package's
+    ``validate_capacities``, which asserts the same counts with checkify.
+
+    ``caps`` lists the capacities in the order of :data:`CAPACITY_CLASSES`
+    (five entries skip the two texture classes; a huge value skips a
+    class). The counts are the JAX package's: per-tile bounding-box
+    overlaps of the drawn triangles (the dense binner's counts; the
+    supertile count at ``super_shape`` tiles), band-vs-tile overlaps of the
+    active silhouette edges at ``edge_tile_h`` (or ``tile_h``) rows without
+    the occlusion cull (an upper bound of the rendered count), the active
+    edges, the drawn triangles, the 8 × ``tex_block_w`` texture-fetch blocks
+    a drawn bounding box overlaps, and the textured pass's segments of the
+    active edges (at ``uv_segment_length`` texels, at most ``uv_n_split``
+    an edge)."""
+    caps = [int(c) for c in caps] + [1 << 30] * (len(CAPACITY_CLASSES) - len(caps))
+    height, width = scene.height, scene.width
+    dev = scene.ij.device
+    with torch.no_grad():
+        ij_off, signed_area_v, draw, _ = prepare(scene)
+        setup = triangle_row_setup(ij_off[scene.faces], scene.depths[scene.faces], draw, width, height,
+                                   scene.strict_edge, scene.perspective_correct)
+        x_lo, x_hi, y_lo, y_hi = setup.x_lo, setup.x_hi, setup.y_lo[:, 0], setup.y_hi[:, 1]
+
+        def tile_counts(th, tw):
+            """Per-tile bounding-box overlap counts, (n_ty, n_tx)."""
+            ok = setup.valid & (x_lo <= x_hi) & (y_lo <= y_hi)
+            return _occupancy_counts(x_lo, x_hi, y_lo, y_hi, ok, -(-height // th), -(-width // tw), th, tw)
+
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        active = scene.edgeflags & (signed_area_v > 0)[:, None]
+        counts = {"AA edge compaction": active.sum(), "solid tile bin": tile_counts(tile_h, tile_w).max(),
+                  "edge tile bin": zero, "supertile bin": zero, "drawn-triangle compaction": draw.sum(),
+                  "texture tile compaction": zero, "texture-window segment compaction": zero}
+        s_ty, s_tx = super_shape
+        if s_ty and s_tx:
+            counts["supertile bin"] = tile_counts(tile_h * s_ty, tile_w * s_tx).max()
+        if sigma > 0:
+            faces = scene.faces
+            v0 = ij_off[faces[:, [1, 2, 0]].reshape(-1)]
+            v1 = ij_off[faces[:, [0, 1, 2]].reshape(-1)]
+            grid = _grid(height, width, edge_tile_h or tile_h, tile_w)
+            mask = _edge_band_tile_mask(v0, v1, float(sigma), active.reshape(-1), grid, height, width)
+            counts["edge tile bin"] = mask.sum(dim=1).max()
+        if scene.texture is not None and tex_block_w > 0:
+            counts["texture tile compaction"] = (tile_counts(8, tex_block_w) > 0).sum()
+        if scene.texture is not None and sigma > 0 and uv_segment_length > 0:
+            fuv = scene.faces_uv
+            span = (scene.uv[fuv[:, [1, 2, 0]].reshape(-1)] - scene.uv[fuv[:, [0, 1, 2]].reshape(-1)]).abs().amax(dim=1)
+            need = torch.clamp_min(span / uv_segment_length, 1.0)
+            n_seg = torch.nan_to_num(need, nan=1.0, posinf=float(uv_n_split)).ceil().clamp(1, uv_n_split)
+            counts["texture-window segment compaction"] = torch.where(active.reshape(-1), n_seg, 0.0).sum()
+        values = torch.stack([counts[k].to(torch.int64) for k in CAPACITY_CLASSES]).tolist()  # one host read
+    counts = dict(zip(CAPACITY_CLASSES, values))
+    if raise_on_overflow:
+        _raise_overflows((k, counts[k], c) for k, c in zip(CAPACITY_CLASSES, caps))
+    return counts, all(counts[k] <= c for k, c in zip(CAPACITY_CLASSES, caps))
 
 
 def _build_edge_data(

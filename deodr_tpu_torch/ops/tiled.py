@@ -127,6 +127,24 @@ def _bin_to_tiles(x_lo, x_hi, y_lo, y_hi, valid, grid: TileGrid, capacity: int):
     return _compact_bins(mask.reshape(grid.n_tiles, -1), capacity)
 
 
+def _occupancy_counts(x_lo, x_hi, y_lo, y_hi, ok, n_ty, n_tx, th, tw):
+    """(n_ty, n_tx) number of the ``ok`` pixel boxes that overlap each tile,
+    by a 2-D difference array."""
+    def tile(v, size, n):
+        return torch.nan_to_num(torch.div(v, size, rounding_mode="floor"), nan=0.0).clamp(0, n - 1).long()
+
+    ty0, ty1 = tile(y_lo, th, n_ty), tile(y_hi, th, n_ty)
+    tx0, tx1 = tile(x_lo, tw, n_tx), tile(x_hi, tw, n_tx)
+    okl = ok.long()
+    # scatter_add_ (integer atomics): index_put_(accumulate=True) sorts and
+    # walks equal indices one after the other on the card, and most boxes
+    # fall in a few tiles
+    delta = torch.zeros((n_ty + 1) * (n_tx + 1), dtype=torch.int64, device=ok.device)
+    for ys, xs, w in ((ty0, tx0, okl), (ty1 + 1, tx0, -okl), (ty0, tx1 + 1, -okl), (ty1 + 1, tx1 + 1, okl)):
+        delta.scatter_add_(0, ys * (n_tx + 1) + xs, w)
+    return delta.reshape(n_ty + 1, n_tx + 1).cumsum(0).cumsum(1)[:n_ty, :n_tx]
+
+
 def _bin_boxes(tiling: TilingConfig, x_lo, x_hi, y_lo, y_hi, valid, grid: TileGrid, capacity: int):
     """Dense bbox binning; the large-mesh binners are not ported yet."""
     if tiling.pair_ry and tiling.pair_rx:
@@ -304,14 +322,17 @@ class RasterTables(NamedTuple):
     grid: TileGrid
 
 
-def _pack_setup_rows(setup: TriangleRowSetup, dtype) -> torch.Tensor:
-    """(T, 22) setup rows. The left/right edge equations are sign-
-    normalized so coverage is ``plane > 0`` (left, strict) and
-    ``plane ≥ 0`` (right): a left equation with a ≤ 0 and a right one with
-    a > 0 are negated, which encodes the rational x-range rule, den == 0
-    included."""
-    leq = torch.where(setup.left_eq[:, :, 0:1] > 0, setup.left_eq, -setup.left_eq)
-    req = torch.where(setup.right_eq[:, :, 0:1] > 0, -setup.right_eq, setup.right_eq)
+def _pack_setup_rows(setup: TriangleRowSetup, dtype, strict_edge: bool = True) -> torch.Tensor:
+    """(T, 22) setup rows. For ``strict_edge`` the left/right edge
+    equations are sign-normalized so coverage is ``plane > 0`` (left,
+    strict) and ``plane ≥ 0`` (right): a left equation with a ≤ 0 and a
+    right one with a > 0 are negated, which encodes the rational x-range
+    rule, den == 0 included. Non-strict rows keep the equations as they
+    are: their kernel mode evaluates the rational range itself."""
+    leq, req = setup.left_eq, setup.right_eq
+    if strict_edge:
+        leq = torch.where(leq[:, :, 0:1] > 0, leq, -leq)
+        req = torch.where(req[:, :, 0:1] > 0, -req, req)
     cols = [
         setup.y_lo[:, 0:1], setup.y_lo[:, 1:2], setup.y_hi[:, 0:1], setup.y_hi[:, 1:2],
         leq[:, 0, :], leq[:, 1, :], req[:, 0, :], req[:, 1, :],
@@ -320,17 +341,22 @@ def _pack_setup_rows(setup: TriangleRowSetup, dtype) -> torch.Tensor:
     return torch.cat([c.to(dtype) for c in cols], dim=1)
 
 
-def _affine_attribute_maps(scene, v_xy, faces, faces_uv, textured, shaded) -> torch.Tensor:
+def _affine_attribute_maps(scene, v_xy, v_z, faces, faces_uv, textured, shaded) -> torch.Tensor:
     """Differentiable per-triangle affine attribute maps (T, D, 3),
     A(x, y) = corner values · bary(x, y), with the attribute order
-    [colors (C) | uv (2) | shade (1) | textured flag] (the last three only
-    for a scene with a texture; the flag row is the constant 0 or 1).
-    Gradients reach vertex positions through the barycentric matrix and
-    colors, uv and shade through the corners."""
+    [colors (C) | uv (2) | shade (1)][| 1/z][| textured flag] (uv, shade
+    and the flag only for a scene with a texture, the flag row the constant
+    0 or 1; 1/z only for a perspective-correct scene, whose corner values
+    are divided by their depth). Gradients reach vertex positions through
+    the barycentric matrix, colors, uv and shade through the corners, and
+    the depths through 1/z."""
     xy1_to_bary, _ = safe_barycentric_matrices(v_xy)  # (T, 3, 3)
     corner = scene.colors[faces]  # (T, 3, C)
     if scene.texture is not None:
         corner = torch.cat([corner, scene.uv[faces_uv], scene.shade[faces][..., None]], dim=-1)
+    if scene.perspective_correct:
+        inv_z = 1.0 / v_z
+        corner = torch.cat([corner / v_z[..., None], inv_z[..., None]], dim=-1)
     affine = (
         corner[:, 0, :, None] * xy1_to_bary[:, 0, None, :]
         + corner[:, 1, :, None] * xy1_to_bary[:, 1, None, :]
@@ -344,17 +370,29 @@ def _affine_attribute_maps(scene, v_xy, faces, faces_uv, textured, shaded) -> to
 
 
 def _finish_shading(scene, vals, z_buffer, background, tex_px=None):
-    """Texture fetch and background compositing; vals (H, W, D) in the
-    attribute order of :func:`_affine_attribute_maps`. Without ``tex_px``
-    (the shaded texture samples, (H, W, C)) the fetch runs on the full frame
-    (pixels that no textured triangle covers sample at uv = 0 and are not
-    selected); :func:`_finish_shading_tile_tex` is the block-compacted
-    one."""
+    """Perspective recovery, texture fetch and background compositing;
+    vals (H, W, D) in the attribute order of :func:`_affine_attribute_maps`
+    (a perspective-correct scene's values are multiplied by 1 / (1/z) where
+    a triangle covers the pixel; the JAX package divides by 0 elsewhere, and
+    its gradients turn NaN).
+    Without ``tex_px`` (the shaded texture samples, (H, W, C)) the fetch
+    runs on the full frame (pixels that no textured triangle covers sample
+    at uv = 0 and are not selected); :func:`_finish_shading_tile_tex` is the
+    block-compacted one."""
     c = scene.colors.shape[1]
     pix = vals[..., :c]
+    big_z = None
+    if scene.perspective_correct:
+        inv_z = vals[..., vals.shape[-1] - (2 if scene.texture is not None else 1), None]
+        # an uncovered pixel holds 0 there: 1/0 would turn its (masked-out) cotangent into 0 · ∞ = NaN
+        big_z = 1.0 / torch.where(torch.isfinite(z_buffer)[..., None], inv_z, 1.0)
+        pix = pix * big_z
     if scene.texture is not None:
         if tex_px is None:
-            tex_px = bilinear_sample(scene.texture, vals[..., c : c + 2]) * vals[..., c + 2 : c + 3]
+            uv_px, lum = vals[..., c : c + 2], vals[..., c + 2 : c + 3]
+            if big_z is not None:
+                uv_px, lum = uv_px * big_z, lum * big_z
+            tex_px = bilinear_sample(scene.texture, uv_px) * lum
         use_tex = vals[..., -1].detach() > 0.5
         pix = torch.where(use_tex[..., None], tex_px, pix)
     pix = torch.where(torch.isfinite(pix), pix, 0.0)
@@ -379,14 +417,15 @@ def raster_tables(scene, ij_off, draw, tiling: TilingConfig, checks=None):
         draw = draw[perm] & got
     v_xy = ij_off[faces]  # (T, 3, 2)
     v_z = scene.depths[faces]
-    setup = triangle_row_setup(v_xy.detach(), v_z.detach(), draw, width, height)
+    setup = triangle_row_setup(v_xy.detach(), v_z.detach(), draw, width, height, scene.strict_edge,
+                               scene.perspective_correct)
     slots, slot_valid, counts = _bin_boxes(
         tiling, setup.x_lo, setup.x_hi, setup.y_lo[:, 0], setup.y_hi[:, 1], setup.valid,
         grid, tiling.triangle_capacity,
     )
-    setup_tile = _gather_rows(_pack_setup_rows(setup, dtype), slots)  # (n_tiles, cap, 22)
+    setup_tile = _gather_rows(_pack_setup_rows(setup, dtype, scene.strict_edge), slots)  # (n_tiles, cap, 22)
     setup_tile[:, :, SETUP_WIDTH - 1] *= slot_valid.to(dtype)
-    affine = _affine_attribute_maps(scene, v_xy, faces, faces_uv, textured, shaded)  # (T, D, 3)
+    affine = _affine_attribute_maps(scene, v_xy, v_z, faces, faces_uv, textured, shaded)  # (T, D, 3)
     # kernel layout [x-coeffs D | y-coeffs D | const D]
     affine_g = affine.transpose(1, 2).reshape(affine.shape[0], 3 * affine.shape[1])
     affine_tile = _gather_rows(affine_g, slots)  # (n_tiles, cap, 3D)
@@ -453,12 +492,15 @@ def _finish_shading_tile_tex(scene, vals_pad, tiling: TilingConfig, grid: TileGr
 def rasterize_tiled_kernel(scene, ij_off, draw, background, tiling: TilingConfig, impl="kernel", checks=None):
     """Tiled solid pass through the raster kernel → (image (H, W, C),
     z_buffer (H, W), max bin count). Counterpart of
-    ``rasterize_tiled_pallas``."""
+    ``rasterize_tiled_pallas``. A perspective-correct scene fetches its
+    texels on the full frame (the block-compacted fetch reads affine uv), as
+    there."""
     tables = raster_tables(scene, ij_off, draw, tiling, checks)
-    _, z_pad, vals_pad = raster_eval(tables.affine_tile, tables.setup_tile, tables.counts, tables.grid, impl)
+    _, z_pad, vals_pad = raster_eval(tables.affine_tile, tables.setup_tile, tables.counts, tables.grid, impl,
+                                     scene.strict_edge, scene.perspective_correct)
     height, width = scene.height, scene.width
     z_buffer = z_pad[:height, :width]
-    if scene.texture is not None and tiling.tex_tile_capacity:
+    if scene.texture is not None and tiling.tex_tile_capacity and not scene.perspective_correct:
         image = _finish_shading_tile_tex(scene, vals_pad, tiling, tables.grid, z_buffer, background, impl, checks)
     else:
         vals = vals_pad.permute(1, 2, 0)[:height, :width, :]

@@ -11,11 +11,11 @@ image cotangent, storing the gradients under the JAX attribute names
 ``mesh.texture_b``, ``light_directional_b``, ``light_ambient_b``) as
 tensors on the scene's device.
 
-The planner always plans for the tiled kernel route (128-wide tiles), the
-only route this package has. A mesh of at most 256 faces, or
-``impl="brute"``, has no tiled plan: those render through the untiled slice
-of the port and raise ``NotImplementedError`` until it lands, as do
-``render_deferred``, compare-and-backward and ``Scene2D``.
+The planner plans for the tiled kernel route (128-wide tiles), except for
+a mesh of at most 256 faces or ``impl="brute"``, which get no tiling and
+render through the untiled pass with the sequential edge pass in the
+planner's windows, as in the JAX package. ``render_deferred``,
+compare-and-backward and ``Scene2D`` belong to a later part of the port.
 """
 
 from __future__ import annotations
@@ -32,7 +32,14 @@ from deodr_tpu_torch.camera import Camera
 from deodr_tpu_torch.geometry.mesh import ColoredTriMesh
 from deodr_tpu_torch.ops.edge_aa import EdgeData
 from deodr_tpu_torch.ops.render import SceneBuffers, render_scene
-from deodr_tpu_torch.ops.tiled import EdgeTexPlan, TilingConfig, _edge_band_tile_mask, _grid, split_edges
+from deodr_tpu_torch.ops.tiled import (
+    EdgeTexPlan,
+    TilingConfig,
+    _edge_band_tile_mask,
+    _grid,
+    _occupancy_counts,
+    split_edges,
+)
 
 # supertile shape (in tiles) of two-level binning (deodr_tpu/scene.py:31-32)
 _SUPER_TY = 8
@@ -71,22 +78,16 @@ def _pow2(n, lo):
     return max(lo, int(2 ** np.ceil(np.log2(max(int(n), 1)))))
 
 
-def _occupancy_counts(x_lo, x_hi, y_lo, y_hi, ok, n_ty, n_tx, th, tw):
-    """(n_ty, n_tx) number of the ``ok`` pixel boxes that overlap each tile,
-    by a 2-D difference array."""
-    def tile(v, size, n):
-        return torch.nan_to_num(torch.div(v, size, rounding_mode="floor"), nan=0.0).clamp(0, n - 1).long()
-
-    ty0, ty1 = tile(y_lo, th, n_ty), tile(y_hi, th, n_ty)
-    tx0, tx1 = tile(x_lo, tw, n_tx), tile(x_hi, tw, n_tx)
-    okl = ok.long()
-    # scatter_add_ (integer atomics): index_put_(accumulate=True) sorts and
-    # walks equal indices one after the other on the card, and most boxes
-    # fall in a few tiles
-    delta = torch.zeros((n_ty + 1) * (n_tx + 1), dtype=torch.int64, device=ok.device)
-    for ys, xs, w in ((ty0, tx0, okl), (ty1 + 1, tx0, -okl), (ty0, tx1 + 1, -okl), (ty1 + 1, tx1 + 1, okl)):
-        delta.scatter_add_(0, ys * (n_tx + 1) + xs, w)
-    return delta.reshape(n_ty + 1, n_tx + 1).cumsum(0).cumsum(1)[:n_ty, :n_tx]
+def edge_window(span_y: float, span_x: float, sigma: float, height: int, width: int):
+    """The sequential edge pass's window for bands whose edges span at most
+    ``span_y`` rows and ``span_x`` columns: the largest band's bounding box
+    (span + 2σ + 4) rounded up to powers of two, at least 8 rows and 128
+    columns, at most the frame; None where it would cover more than a
+    quarter of the frame (the full-frame pass is then as cheap). The rule
+    of the JAX planner (``deodr_tpu/scene.py``, ``_eager_plan``)."""
+    wh = min(_pow2(max(int(span_y + 2 * sigma + 4), 8), 1), height)
+    ww = min(_pow2(max(int(span_x + 2 * sigma + 4), 128), 1), width)
+    return (wh, ww) if wh * ww * 4 <= height * width else None
 
 
 class Scene3D:
@@ -226,11 +227,6 @@ class Scene3D:
         if self.mesh is None:
             raise ValueError("you need to provide a mesh first")
         cap, tiling, aa_window, aa_tex_window, aa_tex_plan = self._eager_plan(camera, backface_culling)
-        if tiling is None:
-            raise NotImplementedError(
-                "this plan has no tiling (a mesh of at most 256 faces, or impl='brute'): it renders through the "
-                "untiled path, which comes with the untiled-renderer slice"
-            )
         leaves = self._diff_inputs(depth_only_scale is not None)
         buffers, _ = self._build_buffers(camera, *leaves, backface_culling, depth_only_scale)
         impl = "reference" if self.impl == "reference" else "kernel"
@@ -422,12 +418,7 @@ class Scene3D:
             cap = min(3 * mesh.nb_faces, max(64, -(-int(n_flags * 1.25) // 64) * 64))
             if n_flags > 0:
                 # windows bounding the largest band (sequential edge pass only)
-                need_h = int(stats["span_y"] + 2 * sigma + 4)
-                need_w = int(stats["span_x"] + 2 * sigma + 4)
-                wh = min(_pow2(max(need_h, 8), 1), height)
-                ww = min(_pow2(max(need_w, 128), 1), width)
-                if wh * ww * 4 <= height * width:
-                    aa_window = (wh, ww)
+                aa_window = edge_window(float(stats["span_y"]), float(stats["span_x"]), sigma, height, width)
                 if mesh.texture is not None and mesh.uv is not None:
                     th_t, tw_t = mesh.texture.shape[0], mesh.texture.shape[1]
                     twh = min(_pow2(max(int(stats["uspan_v"] + 4), 8), 1), th_t)

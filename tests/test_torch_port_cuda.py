@@ -33,7 +33,10 @@ chunk of slots, equal z planes, NaN, denormal, infinite and invalid rows,
 empty tiles, vertices on warp-region corners; B3f on the textured synthetic
 edge tables), B4f bit for bit at every channel count, check that the
 forward launchers refuse any shape but their helpers', and that the
-float32 projection ignores TF32.
+float32 projection ignores TF32. Three more hold B1f in its non-strict and
+perspective modes (every mode, D = 3, 4, 7, 8) and B1b at D = 4 and 8
+against their plain versions, and the untiled ``render_scene`` and the
+non-strict tiled one on the card against the CPU.
 """
 
 import numpy as np
@@ -444,6 +447,115 @@ def test_raster_fwd_kernel_matches_plain_version(cuda_device, dtype, tile_h):
     assert torch.equal(torch.isfinite(z_k), fin)
     assert float((z_k[fin] - z_r[fin]).abs().max()) <= lim_z
     assert float((v_k - v_r).abs().max()) <= lim_v
+
+
+RASTER_MODES = {"nonstrict": (False, False), "persp": (True, True), "nonstrict-persp": (False, True)}
+
+
+@pytest.mark.parametrize("tile_h", [16, 48])
+@pytest.mark.parametrize("d", [3, 4, 7, 8])
+@pytest.mark.parametrize("mode", list(RASTER_MODES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_raster_fwd_kernel_modes_match_plain_version(cuda_device, dtype, mode, d, tile_h):
+    """B1f in its non-strict and perspective modes against its plain
+    version on the synthetic raster tables of the mode, at D = 3, 4, 7 and
+    8 attribute planes: slot_map and coverage exact, z within 1e-5 and vals
+    within 1e-4 (float64: 1e-12); outputs from a NaN-filled allocator
+    block, one launch per call."""
+    from deodr_tpu_torch.ops import kernels
+    from deodr_tpu_torch.ops.kernels import raster_kernel as rk
+    from torch_port_scenes import synthetic_raster_tables
+
+    strict, persp = RASTER_MODES[mode]
+    lim_z, lim_v = (1e-12, 1e-12) if dtype == torch.float64 else (1e-5, 1e-4)
+    setup, affine, counts, grid = synthetic_raster_tables(tile_h, d, dtype, cuda_device, strict=strict, persp=persp)
+    slot_r, z_r, v_r = rk.raster_fwd(setup, affine, counts, grid, impl="reference", strict=strict, persp=persp)
+    fin = torch.isfinite(z_r)
+    assert int(fin.sum()) > 0
+    _prefill_allocator(v_r.numel(), dtype, cuda_device)
+    kernels.reset_launches()
+    slot_k, z_k, v_k = rk.raster_fwd(setup, affine, counts, grid, strict=strict, persp=persp)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["raster_fwd"] == 1
+    assert torch.equal(slot_k, slot_r)
+    assert torch.equal(torch.isfinite(z_k), fin)
+    assert float((z_k[fin] - z_r[fin]).abs().max()) <= lim_z
+    assert float((v_k - v_r).abs().max()) <= lim_v
+
+
+@pytest.mark.parametrize("tile_h", [16, 48])
+@pytest.mark.parametrize("d", [4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_raster_bwd_kernel_matches_plain_version_at_more_planes(cuda_device, dtype, d, tile_h):
+    """B1b at the attribute counts of the perspective modes (C + 1 planes
+    untextured, C + 5 = 8 textured): as test_raster_bwd_kernel_matches_plain_version."""
+    from deodr_tpu_torch.ops import kernels
+    from deodr_tpu_torch.ops.kernels import raster_kernel as rk
+
+    lim = 1e-12 if dtype == torch.float64 else 1e-3
+    slot_map, g_vals, counts, grid, cap = _raster_bwd_inputs(cuda_device, dtype, tile_h, "runs", d=d)
+    want = rk.raster_bwd(slot_map, g_vals, counts, grid, cap, impl="reference")
+    _prefill_allocator(want.numel(), dtype, cuda_device)
+    kernels.reset_launches()
+    got = rk.raster_bwd(slot_map, g_vals, counts, grid, cap)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["raster_bwd"] == 1
+    for t, n in enumerate(counts.clamp(max=cap).tolist()):
+        assert bool((got[t, n:] == 0).all()), t
+    assert _rel(got, want) <= lim
+
+
+@pytest.mark.parametrize("case", ["s0", "s1-image", "s1-error-persp-windows", "s1-nonstrict-tiled"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_untiled_and_new_modes_render_on_the_card_as_on_the_cpu(cuda_device, dtype, case):
+    """render_scene on the card (kernels) against the same call on the CPU
+    (plain versions), forward and backward: the untiled route (sequential
+    edge pass, windowed and not) and the tiled route in the non-strict
+    mode; image within 1e-4 and gradients within 1e-3 of scale (float64:
+    1e-9); every tensor of the card's render lies on the card."""
+    import dataclasses
+
+    import deodr_tpu_torch as port
+    from deodr_tpu_torch.ops import kernels
+    from torch_port_scenes import AA_EDGE_CAPACITY, HEIGHT, TILING, WIDTH, mixed_scene_fields
+
+    f = mixed_scene_fields(tilt=0.5)
+    sigma = 0.0 if case == "s0" else 1.5
+    kwargs = dict(aa_edge_capacity=AA_EDGE_CAPACITY)
+    if case == "s1-error-persp-windows":
+        f.update(perspective_correct=True)
+        kwargs.update(aa_window=(64, 128))
+    if case == "s1-nonstrict-tiled":
+        f.update(strict_edge=False)
+        kwargs.update(tiling=port.TilingConfig(**TILING), aa_tex_plan=port.EdgeTexPlan())
+    error_mode = "error" in case
+    names = ("ij", "colors", "uv", "shade", "texture", "depths")
+    outs = {}
+    for device in ("cpu", cuda_device):
+        scene = port.scene_buffers_from_numpy(f, device=device, dtype=dtype)
+        obs = torch.from_numpy(np.random.RandomState(1).rand(HEIGHT, WIDTH, 3)).to(device, dtype)
+        leaves = {k: getattr(scene, k).clone().requires_grad_(True) for k in names}
+        kernels.reset_launches()
+        img, zb, err = port.render_scene(dataclasses.replace(scene, **leaves), sigma, antialiase_error=error_mode,
+                                         obs=obs, **kwargs)
+        out = err if error_mode else img
+        grads = torch.autograd.grad((out * out).sum(), list(leaves.values()), allow_unused=True)
+        if device != "cpu":
+            assert all(t.device.type == "cuda" for t in (out, zb) + tuple(g for g in grads if g is not None))
+            if "tiled" in case:
+                assert kernels.LAUNCHES["raster_fwd"] == 1 and kernels.LAUNCHES["edge_tex_fwd"] == 1
+        outs[device if device == "cpu" else "cuda"] = [out.detach().cpu(), zb.cpu()] + [
+            None if g is None else g.cpu() for g in grads]
+    lim_o, lim_g = (1e-9, 1e-9) if dtype == torch.float64 else (1e-4, 1e-3)
+    a, b = outs["cuda"], outs["cpu"]
+    fin = torch.isfinite(b[1])
+    assert torch.equal(torch.isfinite(a[1]), fin)
+    assert float((a[1][fin] - b[1][fin]).abs().max()) <= (1e-9 if dtype == torch.float64 else 1e-5)
+    assert float((a[0] - b[0]).abs().max()) <= lim_o
+    for name, ga, gb in zip(names, a[2:], b[2:]):
+        assert (ga is None) == (gb is None), name
+        if gb is not None:
+            assert _rel(ga, gb) <= lim_g, name
 
 
 @pytest.mark.parametrize("tile_h", [8, 16, 32, 48])

@@ -8,7 +8,9 @@ each wrapper runs its plain PyTorch version:
   float64, to 1e-9 relative;
 - the forward kernels' region culls: their plain mirrors never drop a
   (region, slot) pair that covers a pixel, B1f's covered-pair count against
-  the JAX coverage predicate, and the forward launch shapes.
+  the JAX coverage predicate, and the forward launch shapes;
+- B1's non-strict and perspective modes (plain version, covered pairs and
+  cull) against the Pallas kernel in those modes.
 
 The CUDA kernels themselves are held against these plain versions on the
 card (tests/test_torch_port_cuda.py and chip_smoke.py).
@@ -290,6 +292,95 @@ def test_edge_plain_backward_matches_autograd_f64_many_slots(textured, error_mod
     assert scale > 0 and int((g_rows[:, :, 0] != 0).sum()) > 64
     assert float((g_auto - g_rows).abs().max()) <= 1e-9 * scale
     assert float((auto[1] - g_buf0).abs().max()) <= 1e-9 * float(auto[1].abs().max())
+
+
+MODES = {"nonstrict": (False, False), "persp": (True, True), "nonstrict-persp": (False, True)}
+
+
+def _mode_tables(dtype, tile_h, strict, persp):
+    """The raster kernel's tables of the soup in a coverage and depth mode
+    (depths tilted per vertex, so that 1/z varies across a triangle)."""
+    f = dict(_fields(), strict_edge=strict, perspective_correct=persp)
+    f["depths"] = f["depths"] + 0.5 * np.random.RandomState(7).rand(len(f["depths"]))
+    scene = scene_buffers_from_numpy(f, device="cpu", dtype=dtype)
+    with torch.no_grad():
+        ij_off, _, draw, _ = prepare(scene)
+        return raster_tables(scene, ij_off, draw, TilingConfig(tile_h, 128, 24, 48))
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_raster_plain_modes_match_pallas_interpret(mode):
+    """B1's plain version in its non-strict and perspective modes against
+    the Pallas kernel in the same modes (interpret mode) on identical
+    float32 tables: slot_map exact, z within 1e-5, vals within 1e-4, the
+    affine-table cotangent within 1e-3 of scale; and its covered-pair count
+    (the operations bound's) against the JAX coverage predicate."""
+    from deodr_tpu.ops.pallas.raster_kernel import _coverage_and_z
+    from deodr_tpu_torch.ops.kernels import tile_coords
+
+    strict, persp = MODES[mode]
+    rt = _mode_tables(torch.float32, 48, strict, persp)
+    grid, cap = rt.grid, rt.setup_tile.shape[1]
+    d = rt.affine_tile.shape[2] // 3
+    assert d == (4 if persp else 3)
+    slot_map, z, vals = rk.raster_fwd(rt.setup_tile, rt.affine_tile, rt.counts, grid, strict=strict, persp=persp)
+    cfg = PallasRasterConfig(grid.tile_h, grid.tile_w, grid.n_ty, grid.n_tx, cap, d, strict, persp, interpret=True)
+    affine_j = jnp.swapaxes(jnp.concatenate([_np(rt.affine_tile), np.zeros((grid.n_tiles, 1, 3 * d), np.float32)], 1), 1, 2)
+    setup_j = jnp.swapaxes(jnp.asarray(_np(rt.setup_tile)), 1, 2)
+    counts_j = jnp.asarray(_np(rt.counts))[None, :]
+    (slot_j, z_j, vals_j), vjp = jax.vjp(lambda a: raster_eval_pallas(cfg, a, setup_j, counts_j), affine_j)
+    np.testing.assert_array_equal(_np(slot_map), np.asarray(slot_j))
+    fin = np.isfinite(np.asarray(z_j))
+    assert fin.sum() > 1000
+    np.testing.assert_array_equal(fin, np.isfinite(_np(z)))
+    assert np.abs(np.asarray(z_j)[fin] - _np(z)[fin]).max() < 1e-5
+    assert np.abs(np.asarray(vals_j) - _np(vals)).max() < 1e-4
+    g_vals = np.random.RandomState(2).rand(*vals.shape).astype(np.float32)
+    (g_j,) = vjp((np.zeros(slot_j.shape, jax.dtypes.float0), jnp.zeros_like(z_j), jnp.asarray(g_vals)))
+    g_j = np.swapaxes(np.asarray(g_j), 1, 2)
+    g_t = _np(rk.raster_bwd(slot_map, torch.from_numpy(g_vals), rt.counts, grid, cap))
+    assert np.abs(g_j[:, :cap] - g_t).max() < 1e-3 * max(np.abs(g_j).max(), 1.0)
+
+    yy, xx = tile_coords(grid, torch.float32, "cpu")
+    yrow, xs = jnp.asarray(_np(yy)), jnp.asarray(_np(xx.expand(grid.n_tiles, grid.tile_h, grid.tile_w)))
+    setup, counts = _np(rt.setup_tile), _np(rt.counts)
+    want = 0
+    for k in range(int(counts.max())):
+        cov, _ = _coverage_and_z(cfg, lambda j, k=k: jnp.asarray(setup[:, k, j])[:, None, None], yrow, xs)
+        want += int((np.asarray(cov) & (k < counts)[:, None, None]).sum())
+    assert rk.covered_visits(rt.setup_tile, rt.counts, grid, strict, persp) == want
+
+
+@pytest.mark.parametrize("table", ["soup", "synthetic"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("mode", list(MODES))
+def test_raster_region_cull_keeps_covered_pairs_in_every_mode(mode, dtype, table):
+    """The plain mirror of B1f's region cull in the non-strict and
+    perspective modes keeps every (warp region, slot) pair where the slot
+    covers a pixel of the region: on the soup and on the synthetic raster
+    tables of the mode (vertices on warp-region corners, a = 0 edges, a
+    depth plane through 0, NaN and invalid rows)."""
+    from deodr_tpu_torch.ops.kernels import tile_coords
+    from torch_port_scenes import synthetic_raster_tables
+
+    strict, persp = MODES[mode]
+    if table == "soup":
+        rt = _mode_tables(dtype, 48, strict, persp)
+        rows, counts, grid = rt.setup_tile, rt.counts, rt.grid
+    else:
+        rows, _, counts, grid = synthetic_raster_tables(16, 3, dtype, strict=strict, persp=persp)
+    yy, xx = tile_coords(grid, dtype, "cpu")
+    cov = rk._coverage(rows[:, :, :, None, None], yy[:, None], xx[:, None], -torch.finfo(dtype).tiny, strict,
+                       persp)[0]
+    cap = rows.shape[1]
+    used = torch.arange(cap)[None, :] < counts.to(torch.int64).clamp(max=cap)[:, None]
+    cov = cov & used[:, :, None, None]
+    assert int(cov.sum()) > 0
+    kept = rk.region_cull(rows, counts, grid, strict)
+    needed = _regions_covered(cov, grid, rk.RASTER_FWD_PIXELS)
+    assert int((needed & ~kept).sum()) == 0
+    if table == "soup":
+        assert int(kept.sum()) < int(used.sum()) * kept.shape[1] // 2
 
 
 # ------------------------------------------------------------- the forward kernels' region cull

@@ -1,8 +1,9 @@
 """The port's render_scene (deodr_tpu_torch) against the JAX package's
 render_scene(..., tiling=..., impl="xla") on the CPU: images, z-buffers,
 error buffers and the gradients with respect to ij and colors, at σ = 0 and
-σ = 1, image and error mode, in float64 and float32; tie rules; refusals of
-what the port does not cover yet; and no JAX in the port. Textured scenes are
+σ = 1, image and error mode, in float64 and float32; tie rules; what the
+port refused before it had the untiled passes, against JAX, and the
+refusals of what it does not cover yet; and no JAX in the port. Textured scenes are
 held in tests/test_torch_port_textured.py.
 
 Float64 holds to 1e-9 except at band-boundary pixels: the port's edge
@@ -32,6 +33,7 @@ from deodr_tpu.ops.render import _build_edge_data as jax_build_edge_data
 from deodr_tpu.ops.render import _culling as jax_culling
 from deodr_tpu.ops.render import render_scene as jax_render_scene
 from deodr_tpu.ops.render import SceneBuffers as JaxSceneBuffers
+from deodr_tpu.ops.tiled import EdgeTexPlan as JaxEdgeTexPlan
 from deodr_tpu.ops.tiled import TilingConfig as JaxTilingConfig
 from deodr_tpu.ops.tiled import suggest_tiling as jax_suggest_tiling
 from deodr_tpu_torch.ops.render import _build_edge_data, _culling, scene_buffers_from_numpy
@@ -250,41 +252,90 @@ def test_check_capacity_raises_on_undersized_tiling():
     _port_render(f, 0.0, False, torch.float64, tiling=(48, 128, 2, 48), check_capacity=False)
 
 
-@pytest.mark.parametrize(
-    "change",
-    ["untiled", "texture", "perspective_correct", "strict_edge", "pair", "super", "aa_window", "aa_tex_plan",
-     "aa_tex_window"],
-)
+@pytest.mark.parametrize("change", ["pair", "super"])
 def test_off_slice_options_raise(change):
-    """What needs the untiled (sequential) passes or the large-mesh binners
-    raises: among them a textured scene at σ > 0 without a texture plan
-    ("texture"), one with a plan but perspective-correct interpolation
-    ("aa_tex_plan"), which the JAX package sends to its sequential pass, and
-    the untiled pass's windows ("aa_window", "aa_tex_window"; the tiled
-    routes accept and ignore them, tests/test_torch_port_scene3d.py)."""
+    """The large-mesh binners (pair expansion, supertiles) belong to a
+    later part of the port and raise."""
     scene = scene_buffers_from_numpy(_fields(), device="cpu")
-    kwargs = dict(tiling=port.TilingConfig(*TILING))
-    if change == "untiled":
-        kwargs["tiling"] = None
-    elif change == "texture":
-        scene = dataclasses.replace(scene, texture=torch.zeros(4, 4, 3, dtype=torch.float64))
-    elif change == "perspective_correct":
-        scene = dataclasses.replace(scene, perspective_correct=True)
-    elif change == "strict_edge":
-        scene = dataclasses.replace(scene, strict_edge=False)
-    elif change == "pair":
-        kwargs["tiling"] = kwargs["tiling"]._replace(pair_ry=2, pair_rx=2)
-    elif change == "super":
-        kwargs["tiling"] = kwargs["tiling"]._replace(super_ty=1, super_tx=1, super_capacity=8)
-    elif change == "aa_window":  # the windows are read by the untiled pass only (the tiled routes ignore them)
-        kwargs.update(tiling=None, aa_window=(32, 32))
-    elif change == "aa_tex_window":
-        kwargs.update(tiling=None, aa_tex_window=(16, 16))
+    tiling = port.TilingConfig(*TILING)
+    if change == "pair":
+        tiling = tiling._replace(pair_ry=2, pair_rx=2)
     else:
-        scene = dataclasses.replace(scene, texture=torch.zeros(4, 4, 3, dtype=torch.float64), perspective_correct=True)
-        kwargs["aa_tex_plan"] = port.EdgeTexPlan()
+        tiling = tiling._replace(super_ty=1, super_tx=1, super_capacity=8)
     with pytest.raises(NotImplementedError):
-        port.render_scene(scene, 1.0, **kwargs)
+        port.render_scene(scene, 1.0, tiling=tiling)
+
+
+def _jax_render_with(f, sigma, dtype, **kwargs):
+    """(image, z-buffer, d loss/d ij, d loss/d colors) of the JAX
+    render_scene with ``kwargs``; the loss is Σ (image − obs)²."""
+    scene = _jax_scene(f, dtype)
+    obs = jnp.asarray(np.random.RandomState(1).rand(*SIZE, 3), dtype)
+
+    def loss(ij, colors):
+        img, zb, _ = jax_render_scene(dataclasses.replace(scene, ij=ij, colors=colors), sigma, **kwargs)
+        return jnp.sum((img - obs) ** 2), (img, zb)
+
+    (_, (img, zb)), (g_ij, g_c) = jax.jit(jax.value_and_grad(loss, argnums=(0, 1), has_aux=True))(scene.ij,
+                                                                                                  scene.colors)
+    return [np.asarray(a) for a in (img, zb, g_ij, g_c)]
+
+
+@pytest.mark.parametrize(
+    "change", ["untiled", "texture", "perspective_correct", "strict_edge", "aa_window", "aa_tex_plan", "aa_tex_window"]
+)
+def test_former_off_slice_options_render_as_jax(change):
+    """What the port refused before it had the untiled passes now renders
+    as the JAX package does, at σ = 1 in float64 (image, z-buffer and the
+    gradients to ij and colors within 1e-9): the untiled route, a textured
+    scene without a texture plan ("texture"; a zero texture no triangle
+    uses), perspective correction, ``strict_edge=False``, the sequential
+    pass's windows, and a textured perspective-correct scene with a plan
+    ("aa_tex_plan"), which takes the sequential pass. The tiled cases are
+    held against the JAX Pallas route (interpret mode), whose edge kernel
+    clips bands as the port's does; the perspective-correct tiled cases'
+    gradients against the JAX untiled route (the JAX tiled routes give NaN
+    gradients there, tests/test_torch_port_modes.py)."""
+    f = dict(_fields())
+    tiling = TILING
+    port_kw, jax_kw = {}, {}
+    if change == "untiled":
+        tiling = None
+    elif change == "texture":
+        f.update(texture=np.zeros((4, 4, 3)))
+    elif change == "perspective_correct":
+        f.update(perspective_correct=True)
+    elif change == "strict_edge":
+        # tilted in depth: non-strict, a triangle clipped at the frame's border covers pixels beside its own
+        # bands, and at equal depths their z-test would be decided by the last bit (test_torch_port_untiled.py)
+        f.update(strict_edge=False, depths=f["depths"] + 0.5 * np.random.RandomState(7).rand(len(f["depths"])))
+    elif change == "aa_window":
+        tiling = None
+        port_kw = jax_kw = dict(aa_window=(32, 32))
+    elif change == "aa_tex_window":
+        tiling = None
+        port_kw = jax_kw = dict(aa_tex_window=(16, 16))
+    else:
+        f.update(texture=np.zeros((4, 4, 3)), perspective_correct=True)
+        port_kw, jax_kw = dict(aa_tex_plan=port.EdgeTexPlan()), dict(aa_tex_plan=JaxEdgeTexPlan())
+    jax_tiling = None if tiling is None else JaxTilingConfig(*tiling)
+    want = _jax_render_with(f, 1.0, jnp.float64, aa_edge_capacity=AA_EDGE_CAPACITY, tiling=jax_tiling,
+                            impl="pallas", impl_interpret=True, **jax_kw)
+    if f["perspective_correct"] and tiling is not None:
+        want[2:] = _jax_render_with(f, 1.0, jnp.float64, aa_edge_capacity=AA_EDGE_CAPACITY, **jax_kw)[2:]
+    scene = scene_buffers_from_numpy(f, device="cpu")
+    obs = torch.from_numpy(np.random.RandomState(1).rand(*SIZE, 3))
+    ij, colors = scene.ij.clone().requires_grad_(True), scene.colors.clone().requires_grad_(True)
+    img, zb, _ = port.render_scene(dataclasses.replace(scene, ij=ij, colors=colors), 1.0,
+                                   aa_edge_capacity=AA_EDGE_CAPACITY,
+                                   tiling=None if tiling is None else port.TilingConfig(*tiling), **port_kw)
+    g_ij, g_c = torch.autograd.grad(((img - obs) ** 2).sum(), (ij, colors))
+    img_j, zb_j, gij_j, gc_j = want
+    fin = np.isfinite(zb_j)
+    np.testing.assert_array_equal(fin, np.isfinite(zb.numpy()))
+    assert np.abs(zb.numpy()[fin] - zb_j[fin]).max() <= 1e-9
+    assert np.abs(img.detach().numpy() - img_j).max() <= 1e-9
+    assert _rel(g_ij.numpy(), gij_j) <= 1e-9 and _rel(g_c.numpy(), gc_j) <= 1e-9
 
 
 def test_cuda_request_without_a_card_raises():
@@ -299,6 +350,7 @@ def test_port_and_chip_smoke_import_no_jax():
         "import sys; import deodr_tpu_torch, deodr_tpu_torch.ops.tiled, deodr_tpu_torch.bench_scene, chip_smoke; "
         "import deodr_tpu_torch.duck_scene, deodr_tpu_torch.io.obj, deodr_tpu_torch.ops.kernels.edge_tex_kernel; "
         "import deodr_tpu_torch.scene, deodr_tpu_torch.ops.kernels.quad_blend_kernel; "
+        "import deodr_tpu_torch.ops.edge_aa, deodr_tpu_torch.ops.raster, deodr_tpu_torch.ops.common; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'deodr_tpu.')) or m == 'deodr_tpu']; "
         "assert not bad, bad"
     )

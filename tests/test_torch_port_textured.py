@@ -211,12 +211,19 @@ def test_textured_render_matches_jax_f32(plan, error_mode):
 
 
 def test_textured_capacity_checks_and_refusals():
+    """The segment capacity check fires; a textured scene at σ > 0 without
+    a texture plan takes the sequential edge pass, as in the JAX package
+    (image against its render of the same call, float64); mismatched
+    channels are refused."""
     f, kw = plan_scene("split")
     with pytest.raises(RuntimeError, match="texture-window segment compaction overflow"):
         _port_render(f, SIGMA, False, torch.float64, dict(kw, seg_capacity=8))
     _port_render(f, SIGMA, False, torch.float64, dict(kw, seg_capacity=8), check_capacity=False)
-    with pytest.raises(NotImplementedError, match="aa_tex_plan"):
-        _port_render(f, SIGMA, False, torch.float64, None)
+    out_p = _port_render(f, SIGMA, False, torch.float64, None)[0]
+    out_j = jax.jit(lambda s: jax_render_scene(s, SIGMA, aa_edge_capacity=AA_EDGE_CAPACITY,
+                                               tiling=JaxTilingConfig(**TILING), impl="pallas",
+                                               impl_interpret=True)[0])(_jax_scene(f, jnp.float64))
+    assert np.abs(out_p - np.asarray(out_j)).max() <= 1e-9
     bad = dict(f, colors=f["colors"][:, :2], background_color=f["background_color"][:2])
     with pytest.raises(ValueError, match="channels"):
         _port_render(bad, 0.0, False, torch.float64, None)

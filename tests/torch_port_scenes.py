@@ -16,6 +16,14 @@ from deodr_tpu_torch.ops.tiled import (
     split_edges,
 )
 
+# Run under pytest-xdist, every worker process imports this module at
+# collection. PyTorch's intra-op pool has a thread per core in each worker,
+# so several workers oversubscribe the cores, and the port's tests (many
+# small operations: the sequential edge pass runs ~200 an edge) spend their
+# time waiting on each other's threads. One thread a worker keeps each
+# test near its time alone.
+torch.set_num_threads(1)
+
 HEIGHT, WIDTH = 96, 128
 SIGMA = 1.5
 TILING = dict(tile_h=32, tile_w=128, triangle_capacity=48, edge_capacity=64)
@@ -32,9 +40,14 @@ PLANS = {
 }
 
 
-def mixed_scene_fields(n_tri=12, tex_hw=(64, 64), seed=0, uv_scale=8.0) -> dict:
+def mixed_scene_fields(n_tri=12, tex_hw=(64, 64), seed=0, uv_scale=8.0, tilt=0.0) -> dict:
     """The mixed textured / plain triangle soup of
-    tests/test_edge_tex_pallas.py::make_scene, as numpy fields."""
+    tests/test_edge_tex_pallas.py::make_scene, as numpy fields. ``tilt`` > 0
+    adds up to that much depth per vertex, so that the triangles are not
+    parallel to the image plane: a band's depth then differs from its own
+    triangle's wherever both reach a pixel (with ``strict_edge=False`` a
+    triangle clipped at the frame's border covers pixels outside its edges,
+    and at equal depths the z-test would be decided by the last bit)."""
     rng = np.random.RandomState(seed)
     centers = rng.rand(n_tri, 1, 2) * [WIDTH, HEIGHT]
     tri = centers + (rng.rand(n_tri, 3, 2) - 0.5) * 60
@@ -49,6 +62,8 @@ def mixed_scene_fields(n_tri=12, tex_hw=(64, 64), seed=0, uv_scale=8.0) -> dict:
     shade = rng.rand(3 * n_tri) * 0.8 + 0.2
     texture = rng.rand(*tex_hw, 3)
     textured = rng.rand(n_tri) < 0.6
+    if tilt:
+        depths = depths + tilt * np.random.RandomState(seed + 1000).rand(3 * n_tri)
     return dict(
         faces=faces, faces_uv=faces, ij=tri.reshape(-1, 2), depths=depths, uv=uv, shade=shade, colors=colors,
         edgeflags=np.ones((n_tri, 3), bool), textured=textured, shaded=np.ones((n_tri,), bool), texture=texture,
@@ -238,20 +253,24 @@ RASTER_CAP = 120
 RASTER_COUNTS = (0, 1, 31, 64, 65, 100, RASTER_CAP, RASTER_CAP + 5)
 
 
-def synthetic_raster_tables(tile_h, d=7, dtype=torch.float64, device="cpu", seed=0):
+def synthetic_raster_tables(tile_h, d=7, dtype=torch.float64, device="cpu", seed=0, strict=True, persp=False):
     """Solid-pass inputs on a 2 × 4 grid of tile_h × 128 tiles with the slot
     counts of RASTER_COUNTS, each slot a triangle's row from
-    ``triangle_row_setup``: a third with vertices on warp-region corners (x
-    a multiple of 16, y of 2, so pixel centres lie on their edges), the
-    others 1-40 px wide around a random point of the tile, depths 1-10.
+    ``triangle_row_setup`` (in the coverage mode ``strict`` and the depth
+    mode ``persp``, packed as ``_pack_setup_rows`` packs them): a third with
+    vertices on warp-region corners (x a multiple of 16, y of 2, so pixel
+    centres lie on their edges), the others 1-40 px wide around a random
+    point of the tile, depths 1-10.
     Every 7th slot repeats the row 3 slots before it (equal z planes: the
     lower slot must win), one in 20 is invalid and one in 20 has a NaN
     coefficient. The last tile starts with hand-made rows: a right plane
     exactly 0 on a column of pixels, zero, denormal and infinite
     coefficients, all NaN, a NaN depth plane, and an invalid row that covers
-    the tile. Rows at or above a tile's count hold triangles too, which
-    would cover pixels if a kernel read them. → (setup_tile, affine_tile,
-    counts, grid)"""
+    the tile; for non-strict rows also vertical edges (a = 0) on either
+    side of the x range, and for perspective rows a depth plane through 0
+    inside the tile (an infinite depth there). Rows at or above a tile's
+    count hold triangles too, which would cover pixels if a kernel read
+    them. → (setup_tile, affine_tile, counts, grid)"""
     from deodr_tpu_torch.ops.kernels import TileGrid
     from deodr_tpu_torch.ops.raster import triangle_row_setup
     from deodr_tpu_torch.ops.tiled import _pack_setup_rows
@@ -267,8 +286,8 @@ def synthetic_raster_tables(tile_h, d=7, dtype=torch.float64, device="cpu", seed
     v_xy = np.where(rng.rand(nt, cap, 1, 1) < 1 / 3, corners, loose).reshape(nt * cap, 3, 2)
     v_z = rng.uniform(1, 10, (nt * cap, 3))
     setup = triangle_row_setup(torch.from_numpy(v_xy), torch.from_numpy(v_z), torch.ones(nt * cap, dtype=torch.bool),
-                               4 * 128, 2 * tile_h)
-    rows = _pack_setup_rows(setup, torch.float64).numpy().reshape(nt, cap, 22).copy()
+                               4 * 128, 2 * tile_h, strict, persp)
+    rows = _pack_setup_rows(setup, torch.float64, strict).numpy().reshape(nt, cap, 22).copy()
     for k in range(7, cap, 7):
         rows[:, k] = rows[:, k - 3]
     rows[rng.rand(nt, cap) < 0.05, 21] = 0.0
@@ -294,6 +313,13 @@ def synthetic_raster_tables(tile_h, d=7, dtype=torch.float64, device="cpu", seed
         whole + [1, 0, -x0, 0, 0, 0, -1, 0, x0 + 90, 0, 0, 0, x0, x0 + 127, np.nan, 0, 0.05, 1],
         whole + [0, 0, 1, 0, 0, 0, 0, 0, 1, 0, 0, 0, x0, x0 + 127, 0, 0, 0.01, 0],
     ]
+    if not strict:
+        # a = 0 edges: a left numerator −(b·y + c) < 0, = 0 and > 0, against right ones of each sign
+        hand += [whole + [0, 0, c_l, 0, 0, 0, 0, 0, c_r, 0, 0, 0, x0 + 5, x0 + 70, 0, 0, 0.15, 1]
+                 for c_l, c_r in ((1, 1), (0, -1), (-1, 0), (1, -1))]
+    if persp:
+        # the plane of 1/z crosses 0 at x = x0 + 40: negative depths left of it, +inf on it
+        hand += [whole + [1, 0, -(x0 - 10), 0, 0, 0, -1, 0, x0 + 100, 0, 0, 0, x0, x0 + 127, 1, 0, -(x0 + 40), 1]]
     rows[-1, : len(hand)] = np.array(hand, np.float64)
     affine = rng.normal(0, 1, (nt, cap, 3 * d))
     counts = torch.tensor(RASTER_COUNTS, dtype=torch.int32, device=device)
