@@ -81,11 +81,29 @@ Phases, each of which fails the run (non-zero exit) on any miss:
    within 1e-9), the float32 step's results finite and on the card, its
    median time. Launch
    counts are zeroed before and read after each path;
-7. one JSON line ``{"kernels": [...]}``, one record per kernel and main path
+7. the hand fitters (``deodr_tpu_torch.mesh_fitter`` through the scripts
+   of ``deodr_tpu_torch.examples``, on ``data/``'s hand): (a) the depth fit
+   (200×200, one channel, k1 = 1), 50 steps in float64, its energy at
+   iteration 49 within 1e-3 of the golden 251.31652686512888, the median
+   step and one profiled step, then 50 steps in float32 (finite and
+   falling; its energy at 49 printed beside the golden); (b) the RGB fit
+   (200 wide × 199 high, k1 = −1), 50 steps in float64, its energy at 49
+   inside both bands of tests/test_rgb_image_hand_fitting.py (2104.9-2133.0
+   and 0.5 % of 2117.377851527105), median and profiled step; (c) the
+   multi-view fit (three 200 × 283 views), 12 steps, the last energy below
+   0.75× the first; (d) the L-BFGS depth fit, 8 steps, the last below 0.6×
+   the first. On each, launch counts are zeroed before and read after:
+   B1 and B2 forward and backward launched once a render (the fitter's
+   step runs times its frames, or the energy module's evaluations), and no
+   textured edge or quad-blend kernel. B1 and B2 are held against their
+   plain versions on the tables of the depth fit (C = 1) and the RGB fit
+   (C = 3) at their final state, with their own plans, in float64 (the
+   bounds in float64: PEAK_F64_OPS_S);
+8. one JSON line ``{"kernels": [...]}``, one record per kernel and main path
    that launches it (launches on that path, error, times, the least time the
-   card could take at that path's shapes): 22 records over the paths
-   ``bench``, ``duck``, ``duck_scene3d``, ``duck_quad``, ``bench_nonstrict``
-   and ``duck_persp``. ``ms`` times calls
+   card could take at that path's shapes): 30 records over the paths
+   ``bench``, ``duck``, ``duck_scene3d``, ``duck_quad``, ``bench_nonstrict``,
+   ``duck_persp``, ``depth_fit`` and ``rgb_fit``. ``ms`` times calls
    of the wrapper with CUDA events, host cost of the call included;
    ``device_ms`` (and ``library_device_ms``) is the device time of one call
    from ``torch.profiler``, every kernel's in one profiler session (each
@@ -99,17 +117,22 @@ Phases, each of which fails the run (non-zero exit) on any miss:
    bound counts only the (pixel, slot) pairs its slots cover; each backward
    bound is printed twice: with the used rows of its table written, and
    with the whole table (the zero rows up to the capacity) written;
-8. last line ``{"ok": true, "device": {...}}``.
+9. last line ``{"ok": true, "device": {...}}``.
 
 The scenes come from ``deodr_tpu_torch.bench_scene`` (numpy, seed 0, as
-``bench.py`` builds it) and ``deodr_tpu_torch.duck_scene`` (``data/duck.obj``
-and its texture); nothing of JAX or of the JAX package is imported.
+``bench.py`` builds it), ``deodr_tpu_torch.duck_scene`` (``data/duck.obj``
+and its texture) and the fitters' examples (``data/hand.obj``,
+``depth.bin``, ``hand.png``, ``hand_multiview/``); nothing of JAX or of the
+JAX package is imported.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -121,6 +144,8 @@ import torch
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32 (non-tensor-core) rate
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
+# float64 (non-tensor-core) rate, the same data sheet: the fitters' kernels run in float64
+PEAK_F64_OPS_S = 34e12
 AA_EDGE_CAPACITY = 600
 # float operations per (pixel, slot) visit of each kernel's per-slot test,
 # counted from the kernel source (multiplies, adds, compares); the blend of
@@ -139,9 +164,12 @@ RASTER_NONSTRICT_OPS, RASTER_PERSP_OPS = 17, 1
 DUCK_PATHS = ("duck", "duck_scene3d", "duck_quad")
 # "bench_nonstrict" and "duck_persp" run the raster kernels in their non-strict and perspective modes
 MODE_PATHS = ("bench_nonstrict", "duck_persp")
-KERNEL_PATHS = {"raster_fwd": ("bench",) + DUCK_PATHS + MODE_PATHS, "raster_bwd": ("bench",) + DUCK_PATHS + MODE_PATHS,
-                "edge_fwd": ("bench",),
-                "edge_bwd": ("bench",), "edge_tex_fwd": DUCK_PATHS, "edge_tex_bwd": DUCK_PATHS,
+# the depth fit (200x200, one channel) and the RGB fit (200 wide, 199 high, 3 channels), float64
+FIT_PATHS = ("depth_fit", "rgb_fit")
+KERNEL_PATHS = {"raster_fwd": ("bench",) + DUCK_PATHS + MODE_PATHS + FIT_PATHS,
+                "raster_bwd": ("bench",) + DUCK_PATHS + MODE_PATHS + FIT_PATHS,
+                "edge_fwd": ("bench",) + FIT_PATHS, "edge_bwd": ("bench",) + FIT_PATHS,
+                "edge_tex_fwd": DUCK_PATHS, "edge_tex_bwd": DUCK_PATHS,
                 "quad_blend_fwd": ("duck_quad",), "quad_blend_bwd": ("duck_quad",)}
 KERNEL_SOURCES = {
     "raster_fwd": ("deodr_tpu_torch/csrc/raster_kernel.cu", "deodr_tpu/ops/pallas/raster_kernel.py:137"),
@@ -265,8 +293,8 @@ def device_times(fns, device, reps: int = 10):
             for key, g in zip(fns, groups)}
 
 
-def bound_ms(n_bytes: float, n_ops: float):
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_OPS_S
+def bound_ms(n_bytes: float, n_ops: float, itemsize: int = 4):
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / (PEAK_F64_OPS_S if itemsize == 8 else PEAK_F32_OPS_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -388,7 +416,7 @@ def check_raster_kernels(scene, tiling, device, say, gen):
             device_fn=fwd,
             plain_ms=time_ms(lambda: fwd("reference"), 3, device),
             bound=bound_ms(rows * (22 + 3 * d) * esz + grid.n_tiles * 4 + p_total * (4 + esz * (1 + d)),
-                           visits * ops_per_visit + p_total * 4 * d),
+                           visits * ops_per_visit + p_total * 4 * d, esz),
         )
 
         g_vals = torch.rand(v_ref.shape, generator=gen, dtype=v_ref.dtype).to(device)
@@ -402,25 +430,26 @@ def check_raster_kernels(scene, tiling, device, say, gen):
             ms=time_ms(lambda: rk.raster_bwd(s_ref, g_vals, rt.counts, grid, cap_r), 50, device),
             device_fn=lambda: rk.raster_bwd(s_ref, g_vals, rt.counts, grid, cap_r),
             plain_ms=time_ms(lambda: rk.raster_bwd(s_ref, g_vals, rt.counts, grid, cap_r, impl="reference"), 3, device),
-            bound=bound_ms(p_total * (4 + esz * d) + rows * 3 * d * esz, p_total * 6 * d),
+            bound=bound_ms(p_total * (4 + esz * d) + rows * 3 * d * esz, p_total * 6 * d, esz),
         )
         # the kept bound writes the used rows only; the kernel also writes the zero rows up to cap
-        full = bound_ms(p_total * (4 + esz * d) + grid.n_tiles * cap_r * 3 * d * esz, p_total * 6 * d)[0]
+        full = bound_ms(p_total * (4 + esz * d) + grid.n_tiles * cap_r * 3 * d * esz, p_total * 6 * d, esz)[0]
         say(f"raster_bwd bound {out['raster_bwd']['bound'][0]:.5f} ms with the {rows} used rows written, "
             f"{full:.5f} ms with all {grid.n_tiles} x {cap_r} rows written")
     return out
 
 
-def check_kernels(scene, tiling, obs, device, say):
+def check_kernels(scene, tiling, obs, device, say, edge_cap=AA_EDGE_CAPACITY):
     """Each kernel of the untextured path against its plain version at the
-    bench scene's shapes; returns per-kernel measurements."""
+    shapes of ``scene`` (the bench scene's, or a fitter's with its
+    ``edge_cap``); returns per-kernel measurements."""
     from deodr_tpu_torch.ops.kernels import edge_kernel as ek
 
     gen = torch.Generator(device="cpu").manual_seed(1)
     out = check_raster_kernels(scene, tiling, device, say, gen)
     with torch.no_grad():
         esz = scene.ij.element_size()
-        inputs = edge_inputs(scene, tiling, obs, 1.0, AA_EDGE_CAPACITY)
+        inputs = edge_inputs(scene, tiling, obs, 1.0, edge_cap)
         for name in ("edge_fwd", "edge_bwd"):
             out[name] = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound=(0.0, "operations"))
         for error_mode in (False, True):
@@ -458,18 +487,18 @@ def check_kernels(scene, tiling, obs, device, say):
                     device_fn=lambda args=args: ek.edge_fwd(*args),
                     plain_ms=time_ms(lambda: ek.edge_fwd(*args, impl="reference"), 3, device),
                     bound=bound_ms(e_rows * w_row * esz + p_e * esz * (2 * c + 1),
-                                   e_visits * OPS_PER_VISIT["edge_fwd"]),
+                                   e_visits * OPS_PER_VISIT["edge_fwd"], esz),
                 )
                 out["edge_bwd"].update(
                     ms=time_ms(lambda: ek.edge_bwd(*bargs), 20, device),
                     device_fn=lambda bargs=bargs: ek.edge_bwd(*bargs),
                     plain_ms=time_ms(lambda: ek.edge_bwd(*bargs, impl="reference"), 3, device),
                     bound=bound_ms(e_rows * (w_row + 3 + 3 * c) * esz + p_e * esz * (3 * c + 1),
-                                   e_visits * OPS_PER_VISIT["edge_bwd"]),
+                                   e_visits * OPS_PER_VISIT["edge_bwd"], esz),
                 )
                 # the kept bound writes the used rows only; the kernel also writes the zero rows up to cap
                 full = bound_ms(e_rows * w_row * esz + et.grid.n_tiles * e_cap * (3 + 3 * c) * esz
-                                + p_e * esz * (3 * c + 1), e_visits * OPS_PER_VISIT["edge_bwd"])[0]
+                                + p_e * esz * (3 * c + 1), e_visits * OPS_PER_VISIT["edge_bwd"], esz)[0]
                 say(f"edge_bwd bound {out['edge_bwd']['bound'][0]:.5f} ms with the {e_rows} used rows written, "
                     f"{full:.5f} ms with all {et.grid.n_tiles} x {e_cap} rows written")
     return out
@@ -792,12 +821,13 @@ def duck_scene3d(device, quad_fetch, impl="kernel"):
     """(Scene3D, camera) of the duck as ``bench.measure_duck`` builds it:
     the mesh's float32 tensors on the card, light and background of
     ``deodr_tpu_torch.duck_scene``."""
+    from deodr_tpu_torch import data_path
     from deodr_tpu_torch import duck_scene as ds
     from deodr_tpu_torch.camera import default_camera
     from deodr_tpu_torch.geometry.mesh import ColoredTriMesh
     from deodr_tpu_torch.scene import Scene3D
 
-    mesh = ColoredTriMesh.load(str(ds.DATA_PATH / "duck.obj"))
+    mesh = ColoredTriMesh.load(os.path.join(data_path, "duck.obj"))
     camera = default_camera(ds.DUCK_WIDTH, ds.DUCK_HEIGHT, 60, mesh.vertices.numpy(), np.diag([1.0, -1.0, -1.0]))
     mesh.set_vertices(mesh.vertices.to(device, torch.float32))
     mesh.uv = mesh.uv.to(device, torch.float32)
@@ -1278,6 +1308,130 @@ def run_scene3d_untiled(device, say):
     return ms
 
 
+# ------------------------------------------------------------ the fitters
+
+
+# the golden energies at iteration 49 (tests/test_depth_image_hand_fitting.py, tests/test_rgb_image_hand_fitting.py)
+DEPTH_GOLDEN = 251.31652686512888
+RGB_GOLDEN = 2117.377851527105
+RGB_BAND = (2104.9, 2133.0)
+FITTER_KERNELS = ("raster_fwd", "raster_bwd", "edge_fwd", "edge_bwd")
+
+
+def fit(fitter, steps, say, tag):
+    """``steps`` steps of ``fitter`` (their printed lines kept off the
+    output) → (energies, host ms of each step: a step ends in its host
+    read, so its wall time is its time)."""
+    energies, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = fitter.step()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        energies.append(out[0] if isinstance(out, tuple) else out)
+    check(all(np.isfinite(energies)), f"{tag}: a non-finite energy")
+    say(f"{tag}: {steps} steps in {sum(ms) / 1e3:.3f} s, median step {statistics.median(ms):.4f} ms; energies "
+        f"{energies[0]:.6f} ... {energies[-1]:.10f}")
+    return energies, ms
+
+
+def fitter_launches(tag, renders, device, say):
+    """The launch counts since the last reset: on the card each of B1 and
+    B2 forward and backward launched once a render (``renders``: the
+    fitter's step runs times its frames, re-runs after a replan included),
+    and no textured edge or quad-blend kernel at all."""
+    from deodr_tpu_torch.ops import kernels
+
+    launches = dict(kernels.LAUNCHES)
+    say(f"launches on {tag}: {launches} ({renders} renders)")
+    for name in FITTER_KERNELS:
+        check(device.type != "cuda" or launches[name] == renders,
+              f"{tag}: {name} launched {launches[name]} times for {renders} renders")
+    others = {k: v for k, v in launches.items() if k not in FITTER_KERNELS and v}
+    check(not others, f"{tag}: other kernels launched: {others}")
+    return launches
+
+
+def fitter_kernels(fitter, device, say, tag):
+    """B1 and B2 against their plain versions on the tables of the fitter's
+    render at its current state, with its last plan (the shapes of its main
+    path) and its observed image."""
+    cap, tiling = fitter.core.plan_guess(fitter.camera)
+    with torch.no_grad():
+        if hasattr(fitter, "mesh_color"):
+            params = fitter._params()
+            obs = fitter._tensor(fitter.mesh_image)
+        else:
+            params = [fitter._tensor(a) for a in (fitter.vertices, fitter.transform_quaternion,
+                                                    fitter.transform_translation)]
+            obs = fitter._tensor(fitter.mesh_image)[:, :, None]
+        scene = fitter._buffers(*params)
+    say(f"{tag} kernels: {scene.width}x{scene.height}, C = {scene.colors.shape[1]}, {scene.colors.dtype}, "
+        f"aa_edge_capacity={cap}, {tiling}")
+    return check_kernels(scene, tiling, obs, device, say, edge_cap=cap)
+
+
+def run_fitters(device, say):
+    """Phase 7; returns (measurements, launches, step ms) per fitter path."""
+    from deodr_tpu_torch.examples import depth_image_hand_fitting as depth_ex
+    from deodr_tpu_torch.examples import rgb_image_hand_fitting as rgb_ex
+    from deodr_tpu_torch.examples import rgb_multiview_hand as multi_ex
+    from deodr_tpu_torch.ops import kernels
+
+    measured, launches, ms = {}, {}, {}
+
+    # (a) the depth fit, float64, against its golden energy; then float32
+    fitter = depth_ex.make_fitter(device=device, dtype=torch.float64)
+    kernels.reset_launches()
+    energies, step_ms = fit(fitter, 50, say, "depth fit float64")
+    say(f"depth fit float64: energy at iteration 49 {energies[49]!r} (golden {DEPTH_GOLDEN!r}, limit 1e-3; "
+        f"off by {abs(energies[49] - DEPTH_GOLDEN):.3g})")
+    check(abs(energies[49] - DEPTH_GOLDEN) < 1e-3, "depth fit: energy at iteration 49 off its golden")
+    profile_step(lambda: fit(fitter, 1, lambda _: None, "depth fit"), "depth fit float64", device, say, steps=3)
+    launches["depth_fit"] = fitter_launches("the depth fit", fitter.core.n_runs, device, say)
+    ms["depth_fit"] = statistics.median(step_ms)
+    measured["depth_fit"] = fitter_kernels(fitter, device, say, "depth fit")
+    fitter32 = depth_ex.make_fitter(device=device, dtype=torch.float32)
+    kernels.reset_launches()
+    energies32, step_ms32 = fit(fitter32, 50, say, "depth fit float32")
+    say(f"depth fit float32: energy at iteration 49 {energies32[49]!r} beside the float64 golden {DEPTH_GOLDEN!r} "
+        "(no bound)")
+    check(energies32[-1] < energies32[0], "depth fit float32: the energy did not fall")
+    profile_step(lambda: fit(fitter32, 1, lambda _: None, "depth fit"), "depth fit float32", device, say, steps=3)
+    fitter_launches("the float32 depth fit", fitter32.core.n_runs, device, say)
+    ms["depth_fit_f32"] = statistics.median(step_ms32)
+
+    # (b) the RGB fit, float64, inside both bands of its test
+    fitter = rgb_ex.make_fitter(device=device, dtype=torch.float64)
+    kernels.reset_launches()
+    energies, step_ms = fit(fitter, 50, say, "RGB fit float64")
+    say(f"RGB fit float64: energy at iteration 49 {energies[49]!r} (band {RGB_BAND}, and within 0.5 % of "
+        f"{RGB_GOLDEN!r}: off by {abs(energies[49] - RGB_GOLDEN) / RGB_GOLDEN:.3g})")
+    profile_step(lambda: fit(fitter, 1, lambda _: None, "RGB fit"), "RGB fit float64", device, say, steps=3)
+    launches["rgb_fit"] = fitter_launches("the RGB fit", fitter.core.n_runs, device, say)
+    ms["rgb_fit"] = statistics.median(step_ms)
+    measured["rgb_fit"] = fitter_kernels(fitter, device, say, "RGB fit")
+    check(RGB_BAND[0] < energies[49] < RGB_BAND[1] and abs(energies[49] - RGB_GOLDEN) < 0.005 * RGB_GOLDEN,
+          "RGB fit: energy at iteration 49 outside its bands")
+
+    # (c) the multi-view fit: three views in sequence under one plan
+    fitter = multi_ex.make_fitter(device=device, dtype=torch.float64)
+    kernels.reset_launches()
+    energies, step_ms = fit(fitter, 12, say, "multi-view fit float64")
+    check(energies[-1] < 0.75 * energies[0], "multi-view fit: the last energy is not below 0.75x the first")
+    fitter_launches("the multi-view fit", fitter.core.n_runs * fitter.nb_frames, device, say)
+    ms["multiview_fit"] = statistics.median(step_ms)
+
+    # (d) the depth energy module under torch.optim.LBFGS
+    fitter = depth_ex.make_fitter(optimizer="lbfgs", device=device, dtype=torch.float64)
+    kernels.reset_launches()
+    energies, step_ms = fit(fitter, 8, say, "L-BFGS depth fit float64")
+    check(energies[-1] < 0.6 * energies[0], "L-BFGS depth fit: the last energy is not below 0.6x the first")
+    fitter_launches("the L-BFGS depth fit", fitter.energy.n_evaluations, device, say)
+    ms["lbfgs_fit"] = statistics.median(step_ms)
+    return measured, launches, ms
+
+
 def run(device="cuda", height=512, width=512, n_tri=200, smi_line=None):
     """All phases; raises on any miss. Returns the kernels record and the
     step times. A smaller bench scene only serves a rehearsal on the CPU;
@@ -1340,9 +1494,15 @@ def run(device="cuda", height=512, width=512, n_tri=200, smi_line=None):
     measured["duck_persp"], launches["duck_persp"], ms["duck_persp"] = run_duck_persp(device, say)
     ms["scene3d_untiled"] = run_scene3d_untiled(device, say)
 
-    # 7. kernels line: one record per kernel and main path that launches it (the raster kernels
-    # run on all six, with 3 attribute planes on the bench scene, 7 on the duck and 8 on the perspective
-    # duck), with the device times of every kernel and yardstick measured in one profiler session
+    # 7. the hand fitters (kernels B1 and B2 at the fitters' shapes)
+    fit_measured, fit_launches, ms["fitters"] = run_fitters(device, say)
+    measured.update(fit_measured)
+    launches.update(fit_launches)
+
+    # 8. kernels line: one record per kernel and main path that launches it (the raster kernels
+    # run on all eight, with 3 attribute planes on the bench scene, 7 on the duck, 8 on the perspective
+    # duck, 1 on the depth fit and 3 on the RGB fit), with the device times of every kernel and yardstick
+    # measured in one profiler run
     # key → (function, the hand kernel it launches): a wrapper launches the kernel of its name
     fns = {(id(m), f): (m[f], f"{name}_kernel") if f == "device_fn" else m[f]
            for per_kernel in measured.values() for name, m in per_kernel.items()

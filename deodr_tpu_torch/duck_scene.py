@@ -21,16 +21,15 @@ next power of two) applied to the segment count, which the port's planner
 from __future__ import annotations
 
 import dataclasses
-from pathlib import Path
+import os
 
 import numpy as np
 import torch
 
+from deodr_tpu_torch import data_path
 from deodr_tpu_torch.camera import default_camera
 from deodr_tpu_torch.geometry.mesh import ColoredTriMesh
 from deodr_tpu_torch.ops.tiled import EdgeTexPlan, TilingConfig
-
-DATA_PATH = Path(__file__).resolve().parents[1] / "data"
 
 DUCK_WIDTH, DUCK_HEIGHT = 640, 480
 DUCK_SIGMA = 1.0
@@ -53,7 +52,7 @@ def duck_scene_fields() -> dict:
     in float64 on the CPU)."""
     from deodr_tpu_torch.scene import Scene3D
 
-    mesh = ColoredTriMesh.load(str(DATA_PATH / "duck.obj"))
+    mesh = ColoredTriMesh.load(os.path.join(data_path, "duck.obj"))
     camera = default_camera(DUCK_WIDTH, DUCK_HEIGHT, 60, mesh.vertices.numpy(), np.diag([1.0, -1.0, -1.0]))
     scene = Scene3D(sigma=DUCK_SIGMA, device="cpu")
     scene.set_mesh(mesh)

@@ -4,7 +4,9 @@ PyTorch counterpart of ``deodr_tpu/geometry/adjacency.py``: the index
 arrays (edge list, edge→face incidence, face→edge ids) are built once in
 numpy at mesh construction; the per-frame operations (normals, front-facing
 test, silhouette edges) are plain torch on the vertices' device, gathers
-and ``index_add_`` over those static indices, differentiable by autograd.
+and ``index_add_`` over those static indices, differentiable by autograd,
+and the graph Laplacian (``laplacian_apply``) of the rigid energy and the
+subdivision.
 """
 
 from __future__ import annotations
@@ -95,7 +97,7 @@ class TriMeshAdjacencies:
         self.vertex_faces = np.full((nv, max(int(per_vertex.max(initial=0)), 1)), nf, dtype=np.int32)
         self.vertex_faces[corner_vertex, rank] = corners // 3
 
-        self._on_device: dict = {}  # (name, device) → int64 index tensor
+        self._on_device: dict = {}  # (name, device[, dtype]) → tensor
 
     def _index(self, name: str, device) -> torch.Tensor:
         """The index array ``name`` as an int64 tensor on ``device`` (copied
@@ -103,6 +105,14 @@ class TriMeshAdjacencies:
         key = (name, torch.device(device))
         if key not in self._on_device:
             self._on_device[key] = torch.as_tensor(getattr(self, name).astype(np.int64), device=device)
+        return self._on_device[key]
+
+    def _float(self, name: str, like: torch.Tensor) -> torch.Tensor:
+        """The float array ``name`` in the dtype and on the device of
+        ``like`` (copied there once)."""
+        key = (name, like.device, like.dtype)
+        if key not in self._on_device:
+            self._on_device[key] = torch.as_tensor(getattr(self, name), dtype=like.dtype, device=like.device)
         return self._on_device[key]
 
     # ---- per-frame differentiable operations --------------------------------
@@ -139,6 +149,17 @@ class TriMeshAdjacencies:
         vis_padded = torch.where(ef >= 0, visible[ef.clamp_min(0)], False)
         edge_sil = vis_padded.sum(dim=1) == 1
         return edge_sil[self._index("faces_edges", vertices_2d.device)]
+
+    def laplacian_apply(self, x: torch.Tensor) -> torch.Tensor:
+        """Apply the (symmetric) graph Laplacian to per-vertex rows x (V, …):
+        deg(v)·x_v − Σ_{u∼v} x_u, the neighbour sums an ``index_add`` over
+        both directions of the edge list (float atomics on the card: the
+        last bit can change from run to run)."""
+        e = self._index("edges", x.device)
+        neigh = torch.zeros_like(x).index_add(0, e[:, 0], x.index_select(0, e[:, 1]))
+        neigh = neigh.index_add(0, e[:, 1], x.index_select(0, e[:, 0]))
+        degree = self._float("degree_v_e", x)
+        return degree.reshape((-1,) + (1,) * (x.ndim - 1)) * x - neigh
 
     def boundary_edges(self) -> np.ndarray:
         return self.edges[self.edge_nb_faces == 1]

@@ -1,8 +1,9 @@
 """Triangle mesh classes: static topology (numpy), geometry as tensors.
 
 PyTorch counterpart of ``deodr_tpu/geometry/mesh.py`` without its
-conversion and plotting helpers: ``TriMesh``, ``ColoredTriMesh`` and
-``ColoredTriMesh.load`` for Wavefront OBJ files.
+conversion and plotting helpers: ``TriMesh``, ``ColoredTriMesh``,
+``ColoredTriMesh.load`` for Wavefront OBJ files and
+``ColoredTriMesh.subdivise`` (Loop subdivision).
 """
 
 from __future__ import annotations
@@ -150,6 +151,12 @@ class ColoredTriMesh(TriMesh):
 
     def set_vertices_colors(self, colors) -> None:
         self.vertices_colors = _as_tensor(colors)
+
+    def subdivise(self, n_iter: int) -> "ColoredTriMesh":
+        """The mesh after ``n_iter`` Loop subdivisions (itself for 0)."""
+        from deodr_tpu_torch.geometry.subdivision import loop_subdivision
+
+        return loop_subdivision(self, n_iter)
 
     @staticmethod
     def load(filename: str) -> "ColoredTriMesh":

@@ -36,8 +36,15 @@ forward launchers refuse any shape but their helpers', and that the
 float32 projection ignores TF32. Three more hold B1f in its non-strict and
 perspective modes (every mode, D = 3, 4, 7, 8) and B1b at D = 4 and 8
 against their plain versions, and the untiled ``render_scene`` and the
-non-strict tiled one on the card against the CPU.
+non-strict tiled one on the card against the CPU. The last two hold B1 and
+B2 against their plain versions on the tables of the hand fitters' steps
+(the depth fit's 200×200 frame with one channel, the RGB fit's 200×199
+with three; float32 and float64; every fitter step launches the four
+kernels once a render, and no other) and two fitter steps on the card in
+float64 against the same steps on the CPU (1e-9).
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -685,11 +692,12 @@ def test_projection_ignores_tf32(cuda_device):
     """With TF32 on for matrix products, the float32 projection of the
     duck's vertices through the duck's camera matches the float64 one within
     1e-3 px: the camera's products cannot take TF32."""
+    from deodr_tpu_torch import data_path
     from deodr_tpu_torch import duck_scene as ds
     from deodr_tpu_torch.camera import default_camera, project_points_arrays
     from deodr_tpu_torch.geometry.mesh import ColoredTriMesh
 
-    mesh = ColoredTriMesh.load(str(ds.DATA_PATH / "duck.obj"))
+    mesh = ColoredTriMesh.load(os.path.join(data_path, "duck.obj"))
     camera = default_camera(ds.DUCK_WIDTH, ds.DUCK_HEIGHT, 60, mesh.vertices.numpy(), np.diag([1.0, -1.0, -1.0]))
     out = {}
     before = torch.backends.cuda.matmul.allow_tf32
@@ -703,3 +711,58 @@ def test_projection_ignores_tf32(cuda_device):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = before
     assert float((out[torch.float32].double() - out[torch.float64]).abs().max()) <= 1e-3
+
+
+def _make_fitter(fit, device, dtype):
+    from deodr_tpu_torch.examples import depth_image_hand_fitting, rgb_image_hand_fitting, rgb_multiview_hand
+
+    module = {"depth": depth_image_hand_fitting, "rgb": rgb_image_hand_fitting, "multiview": rgb_multiview_hand}[fit]
+    return module.make_fitter(device=device, dtype=dtype)
+
+
+def _steps(fitter, n):
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return [fitter.step()[0] for _ in range(n)]
+
+
+@pytest.mark.parametrize("fit", ["depth", "rgb"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_kernels_match_plain_versions_at_the_fitters_shapes(cuda_device, dtype, fit):
+    """B1 and B2, forward and backward, against their plain versions on the
+    tables of a depth-fit step (200×200, one channel) and an RGB-fit step
+    (200 wide × 199 high, 3 channels), with the fitter's own plan: slot_map
+    exact, z within 1e-5, images within 1e-4, gradient tables within 1e-3
+    of their scale (chip_smoke.py's bounds); every kernel launched by the
+    step, and no other."""
+    import chip_smoke
+    from deodr_tpu_torch.ops import kernels
+
+    fitter = _make_fitter(fit, cuda_device, dtype)
+    kernels.reset_launches()
+    _steps(fitter, 1)
+    launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    assert launched == dict.fromkeys(chip_smoke.FITTER_KERNELS, fitter.core.n_runs), launched
+    chip_smoke.fitter_kernels(fitter, cuda_device, print, fit)
+
+
+@pytest.mark.parametrize("fit", ["depth", "rgb", "multiview"])
+def test_fitter_step_on_the_card_matches_the_cpu(cuda_device, fit):
+    """Two fitter steps on the card in float64 against the same steps on
+    the CPU: energies within 1e-9 relative, the optimizer state within 1e-9
+    of its scale (the plain versions and the kernels agree to the last bits;
+    the Laplacian's atomics change only the last bits)."""
+    from deodr_tpu_torch.checkpoint import _FITTER_STATE_KEYS
+
+    runs = {}
+    for device in ("cpu", cuda_device):
+        fitter = _make_fitter(fit, device, torch.float64)
+        energies = _steps(fitter, 2)
+        runs[str(device)] = energies, {k: np.array(getattr(fitter, k)) for k in _FITTER_STATE_KEYS
+                                       if hasattr(fitter, k)}
+    (e_cpu, s_cpu), (e_card, s_card) = runs["cpu"], runs[str(cuda_device)]
+    assert all(abs(a - b) <= 1e-9 * abs(b) for a, b in zip(e_card, e_cpu)), (e_card, e_cpu)
+    for k in s_cpu:
+        assert np.abs(s_card[k] - s_cpu[k]).max() <= 1e-9 * max(1.0, float(np.abs(s_cpu[k]).max())), k

@@ -351,6 +351,10 @@ def test_port_and_chip_smoke_import_no_jax():
         "import deodr_tpu_torch.duck_scene, deodr_tpu_torch.io.obj, deodr_tpu_torch.ops.kernels.edge_tex_kernel; "
         "import deodr_tpu_torch.scene, deodr_tpu_torch.ops.kernels.quad_blend_kernel; "
         "import deodr_tpu_torch.ops.edge_aa, deodr_tpu_torch.ops.raster, deodr_tpu_torch.ops.common; "
+        "import deodr_tpu_torch.mesh_fitter, deodr_tpu_torch.checkpoint, deodr_tpu_torch.geometry.energy; "
+        "import deodr_tpu_torch.geometry.transforms, deodr_tpu_torch.geometry.subdivision; "
+        "import deodr_tpu_torch.examples.depth_image_hand_fitting, deodr_tpu_torch.examples.rgb_image_hand_fitting; "
+        "import deodr_tpu_torch.examples.rgb_multiview_hand, deodr_tpu_torch.examples.rgb_fit_spread; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'deodr_tpu.')) or m == 'deodr_tpu']; "
         "assert not bad, bad"
     )
