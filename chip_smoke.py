@@ -83,8 +83,10 @@ Phases, each of which fails the run (non-zero exit) on any miss:
    counts are zeroed before and read after each path;
 7. the hand fitters (``deodr_tpu_torch.mesh_fitter`` through the scripts
    of ``deodr_tpu_torch.examples``, on ``data/``'s hand): (a) the depth fit
-   (200×200, one channel, k1 = 1), 50 steps in float64, its energy at
-   iteration 49 within 1e-3 of the golden 251.31652686512888, the median
+   (200×200, one channel, k1 = 1), 50 steps in float64 (its peak device
+   memory over set-up and 50 steps printed first, from a run of its own),
+   its energy at iteration 49 within 1e-3 of the golden 251.31652686512888,
+   the median
    step and one profiled step, then 50 steps in float32 (finite and
    falling; its energy at 49 printed beside the golden); (b) the RGB fit
    (200 wide × 199 high, k1 = −1), 50 steps in float64, held to what a run
@@ -130,12 +132,33 @@ Phases, each of which fails the run (non-zero exit) on any miss:
    ``colors_b`` within 1e-9), each render launching B1 and B2 forward and
    backward once; the median step, one profiled step, and B1 and B2 against
    their plain versions on its tables;
-9. one JSON line ``{"kernels": [...]}``, one record per kernel and main path
+9. large meshes: ``Scene3D`` on ``octahedron_mesh(level)`` as
+   ``tools/size_sweep.py`` builds it (float32; LARGE_SCENES): level 5
+   (8192 faces) at 2048², σ = 0, planned with supertiles; level 6 at 1024²,
+   σ = 1, and level 7 (131072 faces) at 2048², σ = 1 and 0, planned with
+   pair binning. Each: the plan printed and its binner checked; one
+   ``render`` + ``render_backward`` with ``check_capacity=True`` (no bin
+   overflows), its launches zeroed before and read after (B1f, B2f and B2b
+   once, B1b as many times as ``raster_bwd_batches`` predicts, no B3/B4);
+   ``render_scene`` with the plan against the same plan with dense binning
+   on the same buffers, in float32 (image and z within 1e-6,
+   bit-equality reported; gradients to ij and colors within 1e-2 of scale,
+   beside the spread of two dense runs: float atomics) and in float64
+   (within 1e-9 of scale); at level 7 σ = 1 the float64 render and
+   gradients against ``impl="reference"`` (1e-9 of scale) and B1 and B2
+   against their plain versions on its tables (the ``large_mesh`` records); the median Scene3D step of 10 and Mpix/s,
+   one profiled step, and the binning's device time (binner and dense) as
+   profiler groups. Then B1b split where one launch's table does not fit
+   a block's shared memory: the exploded duck at 320×240 (float64, D = 14,
+   capacity 1024) through ``render_scene`` with a backward against
+   ``impl="reference"`` (1e-9 of scale, one launch a batch), and slot
+   windows at capacity 16384 (float64, D = 1) against the plain version;
+10. one JSON line ``{"kernels": [...]}``, one record per kernel and main path
    that launches it (launches on that path, error, times, the least time the
-   card could take at that path's shapes): 35 records over the paths
+   card could take at that path's shapes): 39 records over the paths
    ``bench``, ``duck``, ``duck_scene3d``, ``duck_quad``, ``bench_nonstrict``,
-   ``duck_persp``, ``depth_fit``, ``rgb_fit``, ``scene2d`` and
-   ``deferred_duck``. ``ms`` times calls
+   ``duck_persp``, ``depth_fit``, ``rgb_fit``, ``scene2d``,
+   ``deferred_duck`` and ``large_mesh``. ``ms`` times calls
    of the wrapper with CUDA events, host cost of the call included;
    ``device_ms`` (and ``library_device_ms``) is the device time of one call
    from ``torch.profiler``, every kernel's in one profiler session (each
@@ -149,7 +172,7 @@ Phases, each of which fails the run (non-zero exit) on any miss:
    bound counts only the (pixel, slot) pairs its slots cover; each backward
    bound is printed twice: with the used rows of its table written, and
    with the whole table (the zero rows up to the capacity) written;
-10. last line ``{"ok": true, "device": {...}}``.
+11. last line ``{"ok": true, "device": {...}}``.
 
 The scenes come from ``deodr_tpu_torch.bench_scene`` (numpy, seed 0, as
 ``bench.py`` builds it), ``deodr_tpu_torch.duck_scene`` (``data/duck.obj``
@@ -200,10 +223,13 @@ MODE_PATHS = ("bench_nonstrict", "duck_persp")
 # the depth fit (200x200, one channel) and the RGB fit (200 wide, 199 high, 3 channels), float64
 FIT_PATHS = ("depth_fit", "rgb_fit")
 # "scene2d" is Scene2D above 256 faces (the tiled route, float64), "deferred_duck" Scene3D.render_deferred on the duck
-# (forward only, 14 attribute planes, float64)
-KERNEL_PATHS = {"raster_fwd": ("bench",) + DUCK_PATHS + MODE_PATHS + FIT_PATHS + ("scene2d", "deferred_duck"),
-                "raster_bwd": ("bench",) + DUCK_PATHS + MODE_PATHS + FIT_PATHS + ("scene2d",),
-                "edge_fwd": ("bench",) + FIT_PATHS + ("scene2d",), "edge_bwd": ("bench",) + FIT_PATHS + ("scene2d",),
+# (forward only, 14 attribute planes, float64), "large_mesh" Scene3D on octahedron_mesh(7) at 2048² (pair binning,
+# float32)
+KERNEL_PATHS = {"raster_fwd": ("bench",) + DUCK_PATHS + MODE_PATHS + FIT_PATHS + ("scene2d", "deferred_duck",
+                                                                                  "large_mesh"),
+                "raster_bwd": ("bench",) + DUCK_PATHS + MODE_PATHS + FIT_PATHS + ("scene2d", "large_mesh"),
+                "edge_fwd": ("bench",) + FIT_PATHS + ("scene2d", "large_mesh"),
+                "edge_bwd": ("bench",) + FIT_PATHS + ("scene2d", "large_mesh"),
                 "edge_tex_fwd": DUCK_PATHS, "edge_tex_bwd": DUCK_PATHS,
                 "quad_blend_fwd": ("duck_quad",), "quad_blend_bwd": ("duck_quad",)}
 KERNEL_SOURCES = {
@@ -1126,7 +1152,9 @@ def check_against(tag, got, want, say, limit_out=1e-4, limit_z=1e-5, limit_grad=
     e_o, e_z = max_err(got["out"].cpu(), want["out"].cpu()), max_err(got["z"].cpu()[fin], want["z"].cpu()[fin])
     grads = [k for k in want if k not in ("out", "z")]
     errs = {k: rel_err(got[k].cpu(), want[k].cpu()) for k in grads}
-    say(f"{tag}: out err {e_o:.3g} (limit {limit_out:g}), z err {e_z:.3g} (limit {limit_z:g}), covered pixels "
+    equal = e_o == 0 and e_z == 0
+    say(f"{tag}: out err {e_o:.3g} (limit {limit_out:g}), z err {e_z:.3g} (limit {limit_z:g}), "
+        f"{'bit-equal' if equal else 'not bit-equal'}, covered pixels "
         f"{int(fin.sum())}; gradient err of scale (limit {limit_grad:g}): "
         + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
     check(all(bool(torch.isfinite(got[k]).all()) and float(got[k].abs().max()) > 0 for k in grads),
@@ -1389,6 +1417,22 @@ def fit(fitter, steps, say, tag):
     return energies, ms
 
 
+def depth_fit_peak_mib(device, steps=50):
+    """Peak device memory (MiB, ``torch.cuda.max_memory_allocated``) of
+    the float64 depth fit's set-up and first ``steps`` steps; None off the
+    card. From the checkout's directory with another checkout's package
+    first on the path it measures that one's."""
+    from deodr_tpu_torch.examples import depth_image_hand_fitting as depth_ex
+
+    if device.type != "cuda":
+        return None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fit(depth_ex.make_fitter(device=device, dtype=torch.float64), steps, lambda _: None, "depth fit")
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**20
+
+
 def fitter_launches(tag, renders, device, say):
     """The launch counts since the last reset: on the card each of B1 and
     B2 forward and backward launched once a render (``renders``: the
@@ -1435,6 +1479,9 @@ def run_fitters(device, say):
     measured, launches, ms = {}, {}, {}
 
     # (a) the depth fit, float64, against its golden energy; then float32
+    peak = depth_fit_peak_mib(device)
+    say("depth fit float64: peak device memory "
+        + ("not measured (no card)" if peak is None else f"{peak:.2f} MiB over set-up and 50 steps"))
     fitter = depth_ex.make_fitter(device=device, dtype=torch.float64)
     kernels.reset_launches()
     energies, step_ms = fit(fitter, 50, say, "depth fit float64")
@@ -1769,6 +1816,251 @@ def run_scenes(device, say):
 
 
 
+# ------------------------------------------------------------ large meshes
+
+
+# The large-mesh configurations of tools/size_sweep.py::run_config at full size: octahedron_mesh(level) (8192,
+# 32768, 131072 faces) seen by default_camera(res, res, 60, vertices, diag(1, -1, -1)), the light
+# (-0.4, -0.4, -0.8) / 0.4 and the background (0.2, 0.3, 0.5), in float32 (tag, level, resolution, sigma, the
+# binner the plan must pick). The port plans the kernel route, as the JAX planner does with impl="pallas": there
+# octahedron_mesh(5) gets supertiles at 2048² (at 640x512 both keep dense binning; the JAX test that asserts
+# supertiles at 640x512 plans its XLA route)
+LARGE_SCENES = (
+    ("octahedron5_2048_s0", 5, 2048, 0.0, "supertiles"),
+    ("octahedron6_1024_s1", 6, 1024, 1.0, "pairs"),
+    ("octahedron7_2048_s1", 7, 2048, 1.0, "pairs"),
+    ("octahedron7_2048_s0", 7, 2048, 0.0, "pairs"),
+)
+# the scene whose tables give the large_mesh path's kernel records, and the one checked in float64 against the
+# plain versions
+LARGE_KERNEL_SCENE = "octahedron7_2048_s1"
+# a large-mesh binner against dense binning at the same capacities, on the same buffers: the same slot lists make
+# the same tables, so image and z are expected bit-equal (the limit is float32's rounding). The gradients sum with
+# float atomics (B1b's block sums, index_select's backward) in an order that changes from run to run, and the
+# gradient to ij takes differences of sums of g·x at pixel coordinates up to 2047: in float32 two runs of the same
+# dense plan differ by up to 1.8e-3 of scale (octahedron_mesh(5) at 2048², an NVIDIA H100 80GB HBM3). So the exact
+# comparison is made in float64 (1e-9 of scale), and float32 gradients are held within LARGE_LIMIT_GRAD32 of scale,
+# beside the spread of two dense runs
+LARGE_LIMIT_OUT, LARGE_LIMIT_GRAD32, LARGE_LIMIT64 = 1e-6, 1e-2, 1e-9
+LIGHT_LARGE, BACKGROUND_LARGE = (-0.4, -0.4, -0.8), (0.2, 0.3, 0.5)
+
+
+def large_scene(level, res, sigma, device, dtype, impl="kernel"):
+    """(Scene3D, camera) of size_sweep's configuration, the mesh's tensors
+    in ``dtype`` on ``device``."""
+    from deodr_tpu_torch import Scene3D, default_camera
+    from deodr_tpu_torch.geometry.primitives import octahedron_mesh
+
+    mesh = octahedron_mesh(level)
+    camera = default_camera(res, res, 60, mesh.vertices.numpy(), np.diag([1.0, -1.0, -1.0]))
+    mesh.set_vertices(mesh.vertices.to(device, dtype))
+    mesh.set_vertices_colors(mesh.vertices_colors.to(device, dtype))
+    scene = Scene3D(sigma=sigma, device=device, impl=impl)
+    scene.set_mesh(mesh)
+    scene.set_light(np.array(LIGHT_LARGE), 0.4)
+    scene.set_background_color(np.array(BACKGROUND_LARGE))
+    return scene, camera
+
+
+def large_buffers(scene, camera):
+    """The SceneBuffers of the scene's view, with no autograd graph."""
+    with torch.no_grad():
+        return scene._build_buffers(camera, *scene._diff_inputs(False), True, None)[0]
+
+
+def large_loss_grads(buffers, sigma, plan, obs, impl="kernel", check_capacity=False):
+    """Image ("out"), z and the gradients to ij and colors of size_sweep's
+    loss Σ (render − obs)² on ``buffers`` with the Scene3D ``plan``, as
+    check_against takes them."""
+    from deodr_tpu_torch import render_scene
+
+    cap, tiling, aa_window, aa_tex_window, aa_tex_plan = plan
+    ij = buffers.ij.detach().clone().requires_grad_(True)
+    colors = buffers.colors.detach().clone().requires_grad_(True)
+    image, z, _ = render_scene(dataclasses.replace(buffers, ij=ij, colors=colors), float(sigma), aa_edge_capacity=cap,
+                               tiling=tiling, impl=impl, aa_window=aa_window, aa_tex_window=aa_tex_window,
+                               aa_tex_plan=aa_tex_plan, check_capacity=check_capacity)
+    g_ij, g_c = torch.autograd.grad(((image - obs) ** 2).sum(), (ij, colors))
+    return dict(out=image.detach(), z=z, ij=g_ij, colors=g_c)
+
+
+def dense_plan(plan):
+    """A Scene3D plan with its large-mesh binning fields zeroed: dense
+    binning at the same capacities."""
+    return (plan[0], plan[1]._replace(super_ty=0, super_tx=0, super_capacity=0, pair_ry=0, pair_rx=0)) + plan[2:]
+
+
+def binning_fns(buffers, tiling):
+    """The solid pass's binning of ``buffers`` alone (as raster_tables
+    bins, after the drawn-triangle compaction), with ``tiling``'s binner and
+    with dense binning at the same capacities → (binner, dense) functions."""
+    from deodr_tpu_torch.ops.raster import triangle_row_setup
+    from deodr_tpu_torch.ops.render import prepare
+    from deodr_tpu_torch.ops.tiled import _bin_boxes, _compact_index_perm, _grid
+
+    with torch.no_grad():
+        ij_off, _, draw, _ = prepare(buffers)
+        faces = buffers.faces
+        if tiling.drawn_capacity:
+            perm, got = _compact_index_perm(draw, min(tiling.drawn_capacity, faces.shape[0]))
+            faces, draw = faces[perm], draw[perm] & got
+        setup = triangle_row_setup(ij_off[faces], buffers.depths[faces], draw, buffers.width, buffers.height,
+                                   buffers.strict_edge, buffers.perspective_correct)
+    grid = _grid(buffers.height, buffers.width, tiling.tile_h, tiling.tile_w)
+    dense = dense_plan((None, tiling))[1]
+
+    def binning(t):
+        def fn():
+            with torch.no_grad():
+                return _bin_boxes(t, setup.x_lo, setup.x_hi, setup.y_lo[:, 0], setup.y_hi[:, 1], setup.valid, grid,
+                                  t.triangle_capacity)
+        return fn
+
+    return binning(tiling), binning(dense)
+
+
+def run_b1b_split(device, say):
+    """Phase 9e: B1b where one launch's table does not fit a block's
+    shared memory (ROADMAP C.1): the exploded duck of
+    render_mesh.example_channels at 320x240 (float64, D = 14, triangle
+    capacity 1024) differentiated through render_scene against
+    impl="reference", and a slot-window case (float64, D = 1, capacity
+    16384) on a synthetic table against the plain version."""
+    from deodr_tpu_torch import data_path, render_scene
+    from deodr_tpu_torch.examples import render_mesh
+    from deodr_tpu_torch.ops import kernels
+    from deodr_tpu_torch.ops.kernels import TileGrid
+    from deodr_tpu_torch.ops.kernels import raster_kernel as rk
+
+    scene, camera = render_mesh.default_scene(os.path.join(data_path, "duck.obj"), 320, 240, device=device)
+    scene.sigma = 0
+    buffers, tiling, _ = scene._deferred_buffers(camera)
+    d, cap = buffers.colors.shape[1], tiling.triangle_capacity
+    batches = rk.raster_bwd_batches(cap, d, buffers.colors.element_size())
+    say(f"B1b split: the exploded duck at 320x240, {buffers.colors.dtype}, D = {d}, triangle capacity {cap}: "
+        f"{len(batches)} launches {[tuple(b) for b in batches]}")
+    check(d == 14 and cap == 1024 and buffers.colors.dtype == torch.float64 and len(batches) > 1,
+          "B1b split: the duck's deferred buffers are not a table that needs a split")
+    weight = torch.from_numpy(np.random.RandomState(12).rand(240, 320, d)).to(device)
+
+    def grads(impl):
+        ij = buffers.ij.detach().clone().requires_grad_(True)
+        colors = buffers.colors.detach().clone().requires_grad_(True)
+        image, _, _ = render_scene(dataclasses.replace(buffers, ij=ij, colors=colors), 0.0, tiling=tiling, impl=impl,
+                                   check_capacity=True)
+        return (image.detach(),) + torch.autograd.grad((image * weight).sum(), (ij, colors))
+
+    kernels.reset_launches()
+    got = grads("kernel")
+    n = kernels.LAUNCHES["raster_bwd"]
+    want = grads("reference")
+    errs = [rel_err(a, b) for a, b in zip(got, want)]
+    say(f"B1b split: render_scene fwd+bwd on the kernels against impl='reference': image {errs[0]:.3g}, grad ij "
+        f"{errs[1]:.3g}, grad colors {errs[2]:.3g} of scale (limit 1e-9); raster_bwd launched {n} times "
+        f"(predicted {len(batches)})")
+    check(max(errs) <= 1e-9, "B1b split: the kernels disagree with the plain versions")
+    check(device.type != "cuda" or n == len(batches), "B1b split: not one launch a batch")
+
+    # slot windows: one plane at capacity 16384 does not fit in float64 either
+    grid = TileGrid(2, 2, 16, 128)
+    hp, wp = grid.padded_hw
+    rng = np.random.RandomState(13)
+    cap = 16384
+    slot_map = torch.from_numpy(rng.randint(0, cap + 1, (hp, wp)).astype(np.int32)).to(device)
+    counts = torch.tensor([cap, 12000, 9000, 0], dtype=torch.int32, device=device)
+    g_vals = torch.from_numpy(rng.randn(1, hp, wp)).to(device)
+    batches = rk.raster_bwd_batches(cap, 1, 8)
+    kernels.reset_launches()
+    got = rk.raster_bwd(slot_map, g_vals, counts, grid, cap)
+    n = kernels.LAUNCHES["raster_bwd"]
+    want = rk.raster_bwd(slot_map, g_vals, counts, grid, cap, impl="reference")
+    e = rel_err(got, want)
+    say(f"B1b slot windows: float64, D = 1, capacity {cap}, {[tuple(b) for b in batches]}: g_table err {e:.3g} of "
+        f"scale (limit 1e-9); raster_bwd launched {n} times")
+    check(e <= 1e-9, "B1b slot windows: the kernel disagrees with the plain version")
+    check(device.type != "cuda" or n == len(batches), "B1b slot windows: not one launch a window")
+
+
+def run_large_meshes(device, say, scenes=LARGE_SCENES, kernel_scene=LARGE_KERNEL_SCENE):
+    """Phase 9 on ``scenes`` (smaller ones serve a rehearsal on the CPU);
+    returns (measurements, launches, step ms) of the large_mesh path (the
+    kernel records of ``kernel_scene``)."""
+    from deodr_tpu_torch.ops import kernels
+    from deodr_tpu_torch.ops.kernels import raster_kernel as rk
+    from deodr_tpu_torch.ops.render import prepare
+    from deodr_tpu_torch.ops.tiled import raster_tables
+
+    t0 = time.perf_counter()
+    ms, fns, measured, launches = {}, {}, None, None
+    for tag, level, res, sigma, binner in scenes:
+        scene, camera = large_scene(level, res, sigma, device, torch.float32)
+        plan = scene._eager_plan(camera)
+        cap, tiling = plan[0], plan[1]
+        say(f"{tag}: {scene.mesh.nb_faces} faces at {res}x{res}, sigma={sigma:g}, float32: aa_edge_capacity={cap}, "
+            f"{tiling}")
+        picked = tiling is not None and (tiling.super_capacity > 0 and tiling.pair_ry * tiling.pair_rx == 0
+                                         if binner == "supertiles" else tiling.pair_ry * tiling.pair_rx > 0)
+        check(picked, f"{tag}: the planner did not pick {binner}")
+        buffers = large_buffers(scene, camera)
+        with torch.no_grad():
+            ij_off, _, draw, _ = prepare(buffers)
+            rt = raster_tables(buffers, ij_off, draw, tiling)
+            obs = (scene.render(camera) + 0.05).clamp(0.0, 1.0)
+        n_b1b = len(rk.raster_bwd_batches(rt.setup_tile.shape[1], rt.affine_tile.shape[2] // 3,
+                                          rt.affine_tile.element_size()))
+        say(f"{tag}: {rt.grid.n_tiles} tiles of {rt.grid.tile_h}x{rt.grid.tile_w}, slot capacity "
+            f"{rt.setup_tile.shape[1]}, fullest tile {int(rt.counts.max())}, {int(draw.sum())} drawn faces")
+
+        # the main path: Scene3D render + render_backward, every bin checked, launches counted
+        kernels.reset_launches()
+        image, _ = scene.render(camera, return_z_buffer=True, check_capacity=True)
+        scene.render_backward(2 * (image - obs))
+        got = dict(kernels.LAUNCHES)
+        want = dict.fromkeys(kernels.KERNEL_NAMES, 0)
+        want.update(raster_fwd=1, raster_bwd=n_b1b, edge_fwd=int(sigma > 0), edge_bwd=int(sigma > 0))
+        say(f"launches on {tag} (one render and its backward): {got} (expected {want})")
+        check(device.type != "cuda" or got == want, f"{tag}: launches differ from one render's")
+        grads = (scene.mesh._vertices_b, scene.mesh.vertices_colors_b)
+        check(all(bool(torch.isfinite(g).all()) for g in grads) and float(grads[0].abs().max()) > 0,
+              f"{tag}: Scene3D's gradients are not finite or all zero")
+
+        # the binner against dense binning at the same capacities, on the same buffers, in float32 (with the spread
+        # of two dense runs) and in float64; at kernel_scene the float64 kernels against their plain versions
+        want = large_loss_grads(buffers, sigma, dense_plan(plan), obs)
+        check_against(f"{tag}: dense binning run twice", large_loss_grads(buffers, sigma, dense_plan(plan), obs),
+                      want, say, LARGE_LIMIT_OUT, LARGE_LIMIT_OUT, LARGE_LIMIT_GRAD32)
+        check_against(f"{tag}: {binner} against dense binning", large_loss_grads(buffers, sigma, plan, obs), want,
+                      say, LARGE_LIMIT_OUT, LARGE_LIMIT_OUT, LARGE_LIMIT_GRAD32)
+        scene64, _ = large_scene(level, res, sigma, device, torch.float64)
+        plan64 = scene64._eager_plan(camera)
+        buffers64, obs64 = large_buffers(scene64, camera), obs.to(torch.float64)
+        got64 = large_loss_grads(buffers64, sigma, plan64, obs64, check_capacity=True)
+        check_against(f"{tag} float64: {binner} against dense binning", got64,
+                      large_loss_grads(buffers64, sigma, dense_plan(plan64), obs64), say, *(LARGE_LIMIT64,) * 3)
+        if tag == kernel_scene:
+            check_against(f"{tag} float64: kernels against impl='reference'", got64,
+                          large_loss_grads(buffers64, sigma, plan64, obs64, impl="reference"), say,
+                          *(LARGE_LIMIT64,) * 3)
+
+        def step(scene=scene, camera=camera, obs=obs):
+            scene.render_backward(2 * (scene.render(camera) - obs))
+
+        ms[tag] = median_step_ms(step, device, reps=10)
+        say(f"{tag} step (Scene3D render + render_backward): median {ms[tag]:.4f} ms, "
+            f"{res * res / (ms[tag] * 1e-3) / 1e6:.2f} Mpix/s (10 steps)")
+        profile_step(step, tag, device, say, steps=3)
+        fns[(tag, binner)], fns[(tag, "dense")] = ((fn, None) for fn in binning_fns(buffers, tiling))
+        if tag == kernel_scene:
+            measured = check_kernels(buffers, tiling, obs, device, say, edge_cap=cap)
+            launches = got
+    for (tag, binner), (t, n_ops) in device_times(fns, device).items():
+        say(f"{tag}: binning by {binner}, device time "
+            + ("not measured (no card)" if t is None else f"{t:.4f} ms in {n_ops:g} device operations"))
+    run_b1b_split(device, say)
+    say(f"phase 9 (large meshes) took {time.perf_counter() - t0:.1f} s")
+    return measured, launches, ms
+
+
 def run(device="cuda", height=512, width=512, n_tri=200, smi_line=None):
     """All phases; raises on any miss. Returns the kernels record and the
     step times. A smaller bench scene only serves a rehearsal on the CPU;
@@ -1842,10 +2134,14 @@ def run(device="cuda", height=512, width=512, n_tri=200, smi_line=None):
     measured.update(scene_measured)
     launches.update(scene_launches)
 
-    # 9. kernels line: one record per kernel and main path that launches it (the raster forward
-    # runs on all ten, with 3 attribute planes on the bench scene and Scene2D, 7 on the duck, 8 on the perspective
-    # duck, 1 on the depth fit, 3 on the RGB fit and 14 on the deferred duck), with the device times of every kernel
-    # and yardstick measured in one profiler run
+    # 9. large meshes: Scene3D on octahedron meshes of 8192-131072 faces, binned by supertiles and pairs (B1, B2),
+    # and B1b split where its table does not fit shared memory
+    measured["large_mesh"], launches["large_mesh"], ms["large_mesh"] = run_large_meshes(device, say)
+
+    # 10. kernels line: one record per kernel and main path that launches it (the raster forward
+    # runs on all eleven, with 3 attribute planes on the bench scene, Scene2D and the large mesh, 7 on the duck, 8 on
+    # the perspective duck, 1 on the depth fit, 3 on the RGB fit and 14 on the deferred duck), with the device times
+    # of every kernel and yardstick measured in one profiler run
     # key → (function, the hand kernel it launches): a wrapper launches the kernel of its name
     fns = {(id(m), f): (m[f], f"{name}_kernel") if f == "device_fn" else m[f]
            for per_kernel in measured.values() for name, m in per_kernel.items()

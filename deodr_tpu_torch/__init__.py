@@ -22,9 +22,25 @@ import os as _os
 
 data_path = _os.path.abspath(_os.path.join(_os.path.dirname(__file__), "..", "data"))
 
+from deodr_tpu_torch.camera import Camera, PerspectiveCamera, default_camera
+from deodr_tpu_torch.geometry.energy import LaplacianRigidEnergy
+from deodr_tpu_torch.geometry.mesh import ColoredTriMesh, TriMesh, TriMeshAdjacencies
+from deodr_tpu_torch.geometry.subdivision import loop_subdivision
+from deodr_tpu_torch.io.obj import read_obj, save_obj
+from deodr_tpu_torch.mesh_fitter import (
+    MeshDepthFitter,
+    MeshDepthFitterEnergy,
+    MeshRGBFitterWithPose,
+    MeshRGBFitterWithPoseMultiFrame,
+)
 from deodr_tpu_torch.ops.render import SceneBuffers, render_scene, scene_buffers_from_numpy, validate_capacities
 from deodr_tpu_torch.ops.tiled import EdgeTexPlan, TilingConfig, suggest_tiling
 from deodr_tpu_torch.scene import Scene2D, Scene3D
 
-__all__ = ["EdgeTexPlan", "Scene2D", "Scene3D", "SceneBuffers", "TilingConfig", "data_path", "render_scene",
-           "scene_buffers_from_numpy", "suggest_tiling", "validate_capacities"]
+__all__ = [
+    "Camera", "ColoredTriMesh", "EdgeTexPlan", "LaplacianRigidEnergy", "MeshDepthFitter", "MeshDepthFitterEnergy",
+    "MeshRGBFitterWithPose", "MeshRGBFitterWithPoseMultiFrame", "PerspectiveCamera", "Scene2D", "Scene3D",
+    "SceneBuffers", "TilingConfig", "TriMesh", "TriMeshAdjacencies", "data_path", "default_camera",
+    "loop_subdivision", "read_obj", "render_scene", "save_obj", "scene_buffers_from_numpy", "suggest_tiling",
+    "validate_capacities",
+]

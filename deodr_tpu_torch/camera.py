@@ -77,13 +77,51 @@ class Camera:
         self.height = int(height)
         self.width = int(width)
 
+    @property
+    def xfov(self) -> float:
+        """Horizontal field of view in degrees (the principal point must be
+        the image's centre)."""
+        if self.intrinsic[0, 2] != self.width / 2:
+            raise ValueError("xfov needs the principal point at the image's centre")
+        return float(np.degrees(2 * np.arctan(self.width / (2 * self.intrinsic[0, 0]))))
+
+    @property
+    def yfov(self) -> float:
+        """Vertical field of view in degrees (the principal point must be
+        the image's centre)."""
+        if self.intrinsic[1, 2] != self.height / 2:
+            raise ValueError("yfov needs the principal point at the image's centre")
+        return float(np.degrees(2 * np.arctan(self.height / (2 * self.intrinsic[1, 1]))))
+
+    def _like(self, a, points: torch.Tensor) -> torch.Tensor:
+        return torch.as_tensor(a, dtype=points.dtype, device=points.device)
+
+    def world_to_camera(self, points_3d: torch.Tensor) -> torch.Tensor:
+        """World points (N, 3) → camera coordinates R·p + t, in the points'
+        dtype and device (a broadcast multiply and a sum, as in
+        :func:`project_points_arrays`)."""
+        r = self._like(self.extrinsic[:3, :3], points_3d)
+        return (points_3d[:, None, :] * r).sum(-1) + self._like(self.extrinsic[:3, 3], points_3d)
+
+    def left_mul_intrinsic(self, projected: torch.Tensor) -> torch.Tensor:
+        """Normalised image points (N, 2) → pixel coordinates K[:2, :2]·p +
+        K[:2, 2]."""
+        k = self._like(self.intrinsic, projected)
+        return (projected[:, None, :] * k[:2, :2]).sum(-1) + k[:2, 2]
+
+    def __repr__(self) -> str:
+        return (
+            f"<Camera>\nwidth:\n{self.width}\nheight:\n{self.height}\n"
+            f"extrinsic:\n{self.extrinsic}\nintrinsic:\n{self.intrinsic}\n"
+            f"distortion:\n{self.distortion}\n"
+        )
+
     def project_points(self, points_3d: torch.Tensor, return_depths: bool = True):
         """World → distorted pixel coordinates (x = column, y = row), and
         depths, on the device and in the dtype of ``points_3d``."""
-        def like(a):
-            return None if a is None else torch.as_tensor(a, dtype=points_3d.dtype, device=points_3d.device)
-
-        ij, depths = project_points_arrays(like(self.extrinsic), like(self.intrinsic), like(self.distortion), points_3d)
+        dist = None if self.distortion is None else self._like(self.distortion, points_3d)
+        ij, depths = project_points_arrays(self._like(self.extrinsic, points_3d), self._like(self.intrinsic, points_3d),
+                                           dist, points_3d)
         return (ij, depths) if return_depths else ij
 
     def get_center(self) -> np.ndarray:

@@ -158,6 +158,25 @@ class ColoredTriMesh(TriMesh):
 
         return loop_subdivision(self, n_iter)
 
+    def plot_uv_map(self, ax) -> None:
+        """Draw the texture with the UV triangulation over it on the
+        matplotlib axis ``ax`` (the reference's
+        ``deodr/triangulated_mesh.py:343-347``)."""
+        if self.uv is None:
+            raise ValueError("You need to provide a uv to display the uv map")
+        uv = self.uv.detach().cpu().numpy()
+        if self.texture is not None:
+            ax.imshow(self.texture.detach().cpu().numpy())
+        ax.triplot(uv[:, 0], uv[:, 1], self.faces_uv)
+
+    def plot(self, ax) -> None:
+        """3D surface with the vertex normals as arrows on the matplotlib 3D
+        axis ``ax`` (the reference's ``deodr/triangulated_mesh.py:349-359``)."""
+        v = self.vertices.detach().cpu().numpy()
+        u, w, n = self.vertex_normals.detach().cpu().numpy().T
+        ax.plot_trisurf(v[:, 0], v[:, 1], Z=v[:, 2], triangles=self.faces)
+        ax.quiver(v[:, 0], v[:, 1], v[:, 2], u, w, n, length=0.03, normalize=True, color=[0, 1, 0])
+
     @staticmethod
     def load(filename: str) -> "ColoredTriMesh":
         """Load a Wavefront OBJ file with its texture, if it has one."""

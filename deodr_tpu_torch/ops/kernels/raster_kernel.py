@@ -18,7 +18,10 @@ Layouts (one row per slot, the natural result of gathering table rows):
 - z            (H', W')            winning depth, +inf where nothing covers
 - vals         (D, H', W')         winner's A(x, y), 0 where nothing covers
 - g_table      (n_tiles, cap, 3D)  [Σ g·x | Σ g·y | Σ g]; rows ≥ count are 0,
-                                   every entry written by the kernel
+                                   every entry written by the kernel (by
+                                   several launches, over batches of planes
+                                   or windows of slots, where the table does
+                                   not fit a block's shared memory)
 
 The TPU kernel's trailing "miss" column of the affine table and its slot
 pairing are TPU devices (a one-hot contraction and VLIW latency hiding);
@@ -64,9 +67,10 @@ class RasterBwdShape(NamedTuple):
 def raster_bwd_launch_shape(tile_h: int, tile_w: int, cap: int, d: int, itemsize: int) -> RasterBwdShape:
     """Threads per block (256, fewer on a tile of fewer pixels), blocks per
     tile (the cluster size, at most 8; a block loops over the pixels beyond
-    8 × 256) and shared bytes per block (a cap × 3D accumulator) of the
-    backward kernel; raises ``ValueError`` where the accumulator does not fit
-    a block's shared memory."""
+    8 × 256) and shared bytes per block (a cap × 3D accumulator) of one
+    launch of the backward kernel; raises ``ValueError`` where the
+    accumulator does not fit a block's shared memory (:func:`raster_bwd`
+    splits such a table into launches that fit, :func:`raster_bwd_batches`)."""
     smem = cap * 3 * d * itemsize
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"raster_bwd: cap={cap} slots × 3·D={3 * d} values × {itemsize} bytes = {smem} bytes of "
@@ -74,6 +78,35 @@ def raster_bwd_launch_shape(tile_h: int, tile_w: int, cap: int, d: int, itemsize
     n_px = tile_h * tile_w
     threads = min(RASTER_BWD_THREADS, max(32, -(-n_px // 32) * 32))
     return RasterBwdShape(threads, max(1, min(MAX_CLUSTER, -(-n_px // threads))), smem)
+
+
+class RasterBwdBatch(NamedTuple):
+    """One launch of the backward kernel: attribute planes [d0, d1) and
+    table rows (slots) [k0, k1) of the gradient table."""
+
+    d0: int
+    d1: int
+    k0: int
+    k1: int
+
+
+def raster_bwd_batches(cap: int, d: int, itemsize: int):
+    """The launches of the backward kernel that keep each block's
+    accumulator, (k1 − k0) × 3·(d1 − d0) values, within a block's shared
+    memory → list of :class:`RasterBwdBatch`. Plane d of the table reads
+    only plane d of ``g_vals`` and writes only columns d, D + d and 2D + d,
+    so the planes split into the largest batches that fit; where one plane
+    at the full capacity does not fit, the slots split into windows of as
+    many rows as fit, each with its own batches of planes. A table that
+    fits is one launch."""
+    per_slot = 3 * itemsize
+    window = max(1, min(cap, MAX_SMEM_BYTES // per_slot))
+    out = []
+    for k0 in range(0, cap, window) if cap > 0 else (0,):
+        k1 = min(cap, k0 + window)
+        b = max(1, min(d, MAX_SMEM_BYTES // max(1, (k1 - k0) * per_slot)))
+        out.extend(RasterBwdBatch(d0, min(d, d0 + b), k0, k1) for d0 in range(0, d, b))
+    return out
 
 
 def raster_fwd_launch_shape(tile_h: int, tile_w: int, itemsize: int) -> kernels.FwdShape:
@@ -259,9 +292,57 @@ def raster_fwd(setup_tile, affine_tile, counts, grid: TileGrid, impl: str = "ker
     return slot_map, z, vals
 
 
+def raster_bwd_split(slot_map, g_vals, counts, grid: TileGrid, cap: int, batches, bwd):
+    """The gradient table (n_tiles, cap, 3D) assembled from one call of
+    ``bwd`` (the signature of :func:`raster_bwd_reference`) per batch of
+    ``batches`` (:func:`raster_bwd_batches`). A batch of planes [d0, d1)
+    reads ``g_vals[d0:d1]``; a window of slots [k0, k1) reads the slot map
+    with the window's slots moved to 0 … k1 − k0 − 1 and every other slot
+    set to the window's size (which no count reaches, so its pixels are
+    skipped), and the counts less k0, within [0, k1 − k0]. The backward
+    writes zeros past a tile's count, so each batch's rows are exact. One
+    batch is one call and no copy."""
+    if len(batches) == 1:
+        return bwd(slot_map, g_vals, counts, grid, cap)
+    d = g_vals.shape[0]
+    nt = grid.n_tiles
+    g_table = torch.empty((nt, cap, 3 * d), dtype=g_vals.dtype, device=g_vals.device)
+    cols = g_table.view(nt, cap, 3, d)
+    windows = {}
+    for b in batches:
+        kw = b.k1 - b.k0
+        if (b.k0, b.k1) not in windows:
+            if kw == cap:
+                windows[(b.k0, b.k1)] = (slot_map, counts)
+            else:
+                inside = (slot_map >= b.k0) & (slot_map < b.k1)
+                windows[(b.k0, b.k1)] = (torch.where(inside, slot_map - b.k0, kw).to(torch.int32),
+                                         (counts - b.k0).clamp(0, kw).to(torch.int32))
+        sm, cn = windows[(b.k0, b.k1)]
+        part = bwd(sm, g_vals[b.d0 : b.d1], cn, grid, kw)
+        cols[:, b.k0 : b.k1, :, b.d0 : b.d1] = part.view(nt, kw, 3, b.d1 - b.d0)
+    return g_table
+
+
+def _raster_bwd_launch(slot_map, g_vals, counts, grid: TileGrid, cap: int):
+    """One launch of the backward kernel, in the shape of
+    :func:`raster_bwd_launch_shape`."""
+    d = g_vals.shape[0]
+    nt = grid.n_tiles
+    shape = raster_bwd_launch_shape(grid.tile_h, grid.tile_w, cap, d, g_vals.element_size())
+    g_table = torch.empty((nt, cap, 3 * d), dtype=g_vals.dtype, device=g_vals.device)  # the kernel writes every entry
+    kernels.launch(
+        "raster_bwd", g_vals.dtype,
+        slot_map.data_ptr(), g_vals.data_ptr(), counts.data_ptr(),
+        nt, grid.n_tx, grid.tile_h, grid.tile_w, cap, d, shape.threads, shape.blocks_per_tile, g_table.data_ptr(),
+    )
+    return g_table
+
+
 def raster_bwd(slot_map, g_vals, counts, grid: TileGrid, cap: int, impl: str = "kernel"):
-    """Backward solid pass → g_table (n_tiles, cap, 3D), launched in the
-    shape of :func:`raster_bwd_launch_shape`."""
+    """Backward solid pass → g_table (n_tiles, cap, 3D): one launch of the
+    kernel where its table fits a block's shared memory, else one a batch
+    of :func:`raster_bwd_batches` (:func:`raster_bwd_split`)."""
     if not kernels.use_kernel(g_vals, impl):
         return raster_bwd_reference(slot_map, g_vals, counts, grid, cap)
     kernels.check_float(g_vals, "g_vals")
@@ -272,14 +353,8 @@ def raster_bwd(slot_map, g_vals, counts, grid: TileGrid, cap: int, impl: str = "
     kernels.check_tensor(slot_map, "slot_map", torch.int32, (hp, wp))
     kernels.check_tensor(g_vals, "g_vals", dtype, (d, hp, wp))
     kernels.check_tensor(counts, "counts", torch.int32, (nt,))
-    shape = raster_bwd_launch_shape(grid.tile_h, grid.tile_w, cap, d, g_vals.element_size())
-    g_table = torch.empty((nt, cap, 3 * d), dtype=dtype, device=g_vals.device)  # the kernel writes every entry
-    kernels.launch(
-        "raster_bwd", dtype,
-        slot_map.data_ptr(), g_vals.data_ptr(), counts.data_ptr(),
-        nt, grid.n_tx, grid.tile_h, grid.tile_w, cap, d, shape.threads, shape.blocks_per_tile, g_table.data_ptr(),
-    )
-    return g_table
+    batches = raster_bwd_batches(cap, d, g_vals.element_size())
+    return raster_bwd_split(slot_map, g_vals, counts, grid, cap, batches, _raster_bwd_launch)
 
 
 class _RasterEval(torch.autograd.Function):

@@ -7,8 +7,8 @@ colors, the texture coordinates (``uv``), the Gouraud ``shade``, the
 ``texture`` and the background, for untextured, textured and mixed scenes,
 tiled or not, with or without ``strict_edge`` and perspective correction;
 and ``validate_capacities``, the binning-only check of a plan's capacities.
-Only the large-mesh binners (``pair_*`` and ``super_*`` tilings) belong to a
-later part of the port and raise ``NotImplementedError``.
+The tiled route bins triangles densely, by pair expansion (``pair_*``) or
+by supertiles (``super_*``), as the tiling says.
 """
 
 from __future__ import annotations

@@ -3,15 +3,30 @@ around the kernels.
 
 PyTorch counterpart of the tiled path of ``deodr_tpu/ops/tiled.py``
 (``rasterize_tiled_pallas``, ``edge_pass_tiled_pallas`` and
-``edge_pass_tiled_pallas_tex`` with what they call). The framebuffer is split into fixed-size tiles; triangles are binned
-by bounding box and silhouette-edge bands by an exact band-vs-tile test,
-each bin a padded per-tile slot list of static capacity in stable item
-order. The differentiable per-item rows (affine attribute maps, edge
-stencil coefficients) are built here with autograd; the per-pixel loops run
-in :mod:`deodr_tpu_torch.ops.kernels`.
+``edge_pass_tiled_pallas_tex`` with what they call). The framebuffer is
+split into fixed-size tiles; triangles are binned by bounding box and
+silhouette-edge bands by an exact band-vs-tile test, each bin a padded
+per-tile slot list of static capacity in ascending item order (the
+strict-< z-test lets the lowest slot win ties). The differentiable
+per-item rows (affine attribute maps, edge stencil coefficients) are built
+here with autograd; the per-pixel loops run in
+:mod:`deodr_tpu_torch.ops.kernels`.
+
+Triangles are binned by one of three binners (:func:`_bin_boxes`), which
+give the same slot lists while their capacities hold: dense (a tiles ×
+triangles membership mask and its prefix counts), pair expansion
+(``pair_ry``/``pair_rx``: each triangle lists the ≤ pair_ry·pair_rx tiles
+its box overlaps, and the (triangle, tile) pairs are sorted stably by
+tile, with no tiles × triangles tensor) and supertiles (``super_*``:
+triangles binned to supertiles of super_ty × super_tx tiles, compacted to
+``super_capacity`` candidates each, and only those binned to the member
+tiles).
 
 Bins that overflow their capacity drop their last entries, as in the JAX
-package; ``render_scene(..., check_capacity=True)`` raises instead.
+package; ``render_scene(..., check_capacity=True)`` raises instead, naming
+the bin: "solid tile bin", "edge tile bin", "supertile bin", or a
+"pair-binning y/x tile span" where a box spans more tiles than
+(pair_ry, pair_rx).
 """
 
 from __future__ import annotations
@@ -35,10 +50,9 @@ from deodr_tpu_torch.ops.raster import TriangleRowSetup, triangle_row_setup
 class TilingConfig(NamedTuple):
     """Static tiling parameters: the fields of the JAX package's
     ``TilingConfig`` that this package reads, with the same names and
-    defaults. Capacities bound per-tile bin sizes. This package bins
-    densely: the two-level (``super_*``) and pair-expansion (``pair_*``)
-    binners belong to a later part of the port and raise
-    ``NotImplementedError``."""
+    defaults. Capacities bound per-tile bin sizes; the ``pair_*`` and
+    ``super_*`` fields pick the large-mesh binners (module docstring),
+    pair expansion first where both are set."""
 
     tile_h: int = 64
     tile_w: int = 64
@@ -59,9 +73,12 @@ class TilingConfig(NamedTuple):
     quad_fallback_capacity: int = 0
     # width of the texture-fetch blocks (0 = tile_w)
     tex_block_w: int = 0
+    # supertile shape in tiles (rows, columns) of two-level binning
     super_ty: int = 0
     super_tx: int = 0
+    # > 0: bin to supertiles first, each compacted to this many candidates
     super_capacity: int = 0
+    # > 0 both: pair-expansion binning, each box spanning at most pair_ry tile rows and pair_rx tile columns
     pair_ry: int = 0
     pair_rx: int = 0
 
@@ -112,19 +129,114 @@ def _gather_rows(table: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     return table.index_select(0, slots.reshape(-1)).reshape(slots.shape + (table.shape[1],))
 
 
-def _bin_to_tiles(x_lo, x_hi, y_lo, y_hi, valid, grid: TileGrid, capacity: int):
-    """Bin items, given clamped pixel bboxes, to the tiles they overlap."""
+def _tile_spans(x_lo, x_hi, y_lo, y_hi, valid, grid: TileGrid):
+    """The tile columns tx0..tx1 and rows ty0..ty1 of clamped pixel boxes,
+    and whether each box is non-empty and valid."""
     def tile_of(v, size):
         return torch.div(v.to(torch.int64), size, rounding_mode="floor")
 
     tx0, tx1 = tile_of(x_lo, grid.tile_w), tile_of(x_hi, grid.tile_w)
     ty0, ty1 = tile_of(y_lo, grid.tile_h), tile_of(y_hi, grid.tile_h)
-    nonempty = valid & (x_lo <= x_hi) & (y_lo <= y_hi)
+    return tx0, tx1, ty0, ty1, valid & (x_lo <= x_hi) & (y_lo <= y_hi)
+
+
+def _bin_to_tiles(x_lo, x_hi, y_lo, y_hi, valid, grid: TileGrid, capacity: int):
+    """Bin items, given clamped pixel bboxes, to the tiles they overlap."""
+    tx0, tx1, ty0, ty1, nonempty = _tile_spans(x_lo, x_hi, y_lo, y_hi, valid, grid)
     dev = x_lo.device
     tys = torch.arange(grid.n_ty, device=dev)[:, None, None]
     txs = torch.arange(grid.n_tx, device=dev)[None, :, None]
     mask = nonempty & (tys >= ty0) & (tys <= ty1) & (txs >= tx0) & (txs <= tx1)  # (n_ty, n_tx, N)
     return _compact_bins(mask.reshape(grid.n_tiles, -1), capacity)
+
+
+def _bin_to_tiles_pairs(x_lo, x_hi, y_lo, y_hi, valid, grid: TileGrid, capacity: int, ry: int, rx: int,
+                        checks=None):
+    """Pair-expansion binning: the slot lists of :func:`_bin_to_tiles`
+    built from the ≤ ry·rx (item, tile) pairs of each item, with no
+    tiles × items tensor. The pairs are enumerated item-major and sorted
+    stably by tile, so each tile's items stay in ascending order; an item's
+    rank is its position less its tile's start, and ranks ≥ K are dropped.
+    A box that spans more than ry tile rows or rx tile columns loses its
+    pairs beyond them: ``checks`` gets the largest spans."""
+    n = x_lo.shape[0]
+    n_tiles = grid.n_tiles
+    cap = min(capacity, n)
+    dev = x_lo.device
+    tx0, tx1, ty0, ty1, nonempty = _tile_spans(x_lo, x_hi, y_lo, y_hi, valid, grid)
+    # boxes wholly off the grid hold no tile; the others are clamped to it
+    nonempty = nonempty & (ty1 >= 0) & (tx1 >= 0) & (ty0 < grid.n_ty) & (tx0 < grid.n_tx)
+    ty0, ty1 = ty0.clamp(0, grid.n_ty - 1), ty1.clamp(0, grid.n_ty - 1)
+    tx0, tx1 = tx0.clamp(0, grid.n_tx - 1), tx1.clamp(0, grid.n_tx - 1)
+    if checks is not None:
+        checks.append(("pair-binning y tile span", torch.where(nonempty, ty1 - ty0 + 1, 0).max(), ry))
+        checks.append(("pair-binning x tile span", torch.where(nonempty, tx1 - tx0 + 1, 0).max(), rx))
+    dy = torch.arange(ry, device=dev)[None, :, None]
+    dx = torch.arange(rx, device=dev)[None, None, :]
+    ok = nonempty[:, None, None] & (dy <= (ty1 - ty0)[:, None, None]) & (dx <= (tx1 - tx0)[:, None, None])
+    tile = (ty0[:, None, None] + dy) * grid.n_tx + tx0[:, None, None] + dx  # (N, ry, rx)
+    key = torch.where(ok, tile, n_tiles).reshape(-1)  # n_tiles: no tile
+    order = torch.sort(key, stable=True).indices
+    # scatter_add_, not bincount: bincount reads its size back to the host
+    per_key = torch.zeros(n_tiles + 1, dtype=torch.int64, device=dev).scatter_add_(0, key, torch.ones_like(key))
+    start = torch.cumsum(per_key, 0) - per_key
+    key_s = key[order]
+    rank = torch.arange(key.shape[0], device=dev) - start[key_s]
+    dest = torch.where((key_s < n_tiles) & (rank < cap), key_s * cap + rank, n_tiles * cap)
+    slots = torch.zeros(n_tiles * cap + 1, dtype=torch.int64, device=dev)
+    slots.scatter_(0, dest, torch.div(order, ry * rx, rounding_mode="floor"))
+    counts = per_key[:n_tiles]
+    slot_valid = torch.arange(cap, device=dev)[None, :] < counts[:, None]
+    return slots[: n_tiles * cap].reshape(n_tiles, cap), slot_valid, counts
+
+
+def _bin_to_tiles_hier(x_lo, x_hi, y_lo, y_hi, valid, grid: TileGrid, capacity: int, super_shape,
+                       super_capacity: int, checks=None):
+    """Two-level binning: items binned to supertiles of ``super_shape`` =
+    (s_ty, s_tx) tiles and compacted, stably, to ``super_capacity``
+    candidates each; only those candidates are binned to the supertile's
+    member tiles, with K = min(capacity, candidates) slots, and the lists
+    permuted from (supertile, member) into tile order. Items keep their
+    order in each bin, so while the supertile capacity holds the slot lists
+    are :func:`_bin_to_tiles`'s; ``checks`` gets the largest supertile
+    count."""
+    s_ty, s_tx = super_shape
+    n_ty, n_tx = grid.n_ty, grid.n_tx
+    n_sy, n_sx = -(-n_ty // s_ty), -(-n_tx // s_tx)
+    n_super = n_sy * n_sx
+    n = x_lo.shape[0]
+    dev = x_lo.device
+    tx0, tx1, ty0, ty1, nonempty = _tile_spans(x_lo, x_hi, y_lo, y_hi, valid, grid)
+
+    def sup(v, size):
+        return torch.div(v, size, rounding_mode="floor")
+
+    sys_ = torch.arange(n_sy, device=dev)[:, None, None]
+    sxs = torch.arange(n_sx, device=dev)[None, :, None]
+    mask_s = (nonempty & (sys_ >= sup(ty0, s_ty)) & (sys_ <= sup(ty1, s_ty))
+              & (sxs >= sup(tx0, s_tx)) & (sxs <= sup(tx1, s_tx)))  # (n_sy, n_sx, N)
+    slots_s, valid_s, counts_s = _compact_bins(mask_s.reshape(n_super, n), min(super_capacity, n))
+    ks = slots_s.shape[1]
+    if checks is not None:
+        checks.append(("supertile bin", counts_s.max(), ks))
+
+    # the candidates' tile ranges, against the member tiles of their supertile
+    cand_ok = valid_s & nonempty[slots_s]  # (n_super, ks)
+    s = torch.arange(n_super, device=dev)[:, None, None, None]
+    g_ty = torch.div(s, n_sx, rounding_mode="floor") * s_ty + torch.arange(s_ty, device=dev)[None, :, None, None]
+    g_tx = s % n_sx * s_tx + torch.arange(s_tx, device=dev)[None, None, :, None]
+    mask_f = (cand_ok[:, None, None, :] & (g_ty >= ty0[slots_s][:, None, None, :])
+              & (g_ty <= ty1[slots_s][:, None, None, :]) & (g_tx >= tx0[slots_s][:, None, None, :])
+              & (g_tx <= tx1[slots_s][:, None, None, :]))  # (n_super, s_ty, s_tx, ks)
+    slots_local, slot_valid, counts = _compact_bins(mask_f.reshape(n_super * s_ty * s_tx, ks), capacity)
+    slots = torch.gather(slots_s.repeat_interleave(s_ty * s_tx, dim=0), 1, slots_local)
+
+    # (supertile, member) order → tile order; members past the frame's last tile are dropped
+    ty = torch.arange(n_ty, device=dev)[:, None]
+    tx = torch.arange(n_tx, device=dev)[None, :]
+    s_idx = torch.div(ty, s_ty, rounding_mode="floor") * n_sx + torch.div(tx, s_tx, rounding_mode="floor")
+    perm = (s_idx * (s_ty * s_tx) + (ty % s_ty) * s_tx + tx % s_tx).reshape(-1)
+    return slots[perm], slot_valid[perm], counts[perm]
 
 
 def _occupancy_counts(x_lo, x_hi, y_lo, y_hi, ok, n_ty, n_tx, th, tw):
@@ -145,12 +257,17 @@ def _occupancy_counts(x_lo, x_hi, y_lo, y_hi, ok, n_ty, n_tx, th, tw):
     return delta.reshape(n_ty + 1, n_tx + 1).cumsum(0).cumsum(1)[:n_ty, :n_tx]
 
 
-def _bin_boxes(tiling: TilingConfig, x_lo, x_hi, y_lo, y_hi, valid, grid: TileGrid, capacity: int):
-    """Dense bbox binning; the large-mesh binners are not ported yet."""
+def _bin_boxes(tiling: TilingConfig, x_lo, x_hi, y_lo, y_hi, valid, grid: TileGrid, capacity: int, checks=None):
+    """Bin boxes with the binner ``tiling`` picks, in the JAX package's
+    order: pair expansion where ``pair_ry`` and ``pair_rx`` are set,
+    supertiles where ``super_capacity`` is set and the grid is larger than
+    one supertile, dense otherwise → (slots, slot_valid, counts)."""
     if tiling.pair_ry and tiling.pair_rx:
-        raise NotImplementedError("pair-expansion binning (pair_ry/pair_rx) comes with the large-mesh binning slice")
+        return _bin_to_tiles_pairs(x_lo, x_hi, y_lo, y_hi, valid, grid, capacity, tiling.pair_ry, tiling.pair_rx,
+                                   checks)
     if tiling.super_capacity and (grid.n_ty > tiling.super_ty or grid.n_tx > tiling.super_tx):
-        raise NotImplementedError("two-level binning (super_capacity) comes with the large-mesh binning slice")
+        return _bin_to_tiles_hier(x_lo, x_hi, y_lo, y_hi, valid, grid, capacity,
+                                  (tiling.super_ty, tiling.super_tx), tiling.super_capacity, checks)
     return _bin_to_tiles(x_lo, x_hi, y_lo, y_hi, valid, grid, capacity)
 
 
@@ -421,7 +538,7 @@ def raster_tables(scene, ij_off, draw, tiling: TilingConfig, checks=None):
                                scene.perspective_correct)
     slots, slot_valid, counts = _bin_boxes(
         tiling, setup.x_lo, setup.x_hi, setup.y_lo[:, 0], setup.y_hi[:, 1], setup.valid,
-        grid, tiling.triangle_capacity,
+        grid, tiling.triangle_capacity, checks,
     )
     setup_tile = _gather_rows(_pack_setup_rows(setup, dtype, scene.strict_edge), slots)  # (n_tiles, cap, 22)
     setup_tile[:, :, SETUP_WIDTH - 1] *= slot_valid.to(dtype)

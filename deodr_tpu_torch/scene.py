@@ -115,9 +115,9 @@ class Scene2D:
     CUDA device (a CPU device always takes their plain versions),
     ``"reference"`` the plain versions anywhere. Renders are float64, as
     the reference's arrays. A scene of more than 256 faces renders on the
-    tiled route (:meth:`_plan_tiling`), a smaller one untiled. Each render
-    supports one backward; the gradients accumulate on the host into the
-    numpy buffers ``ij_b``, ``colors_b``, ``uv_b``, ``shade_b`` and
+    tiled route (:meth:`_plan_tiling`), a smaller one untiled. Every
+    backward of a render adds its gradients on the host into the numpy
+    buffers ``ij_b``, ``colors_b``, ``uv_b``, ``shade_b`` and
     ``texture_b``.
     """
 
@@ -246,6 +246,7 @@ class Scene2D:
         self.texture_b = np.zeros(self.texture.shape)
 
     def _render(self, sigma, mode, obs=None):
+        self._store = None  # the last render's autograd graph goes before this one is recorded
         leaves = self._diff_inputs()
         buffers = self._buffers(*leaves)
         validate_scene_buffers(buffers, check_indices=False)  # shapes only: no host read
@@ -278,16 +279,16 @@ class Scene2D:
 
     def _backward(self, mode, cotangent) -> None:
         """Back-propagate ``cotangent`` from the last render's output and
-        add the gradients to the host buffers (one host read)."""
+        add the gradients to the host buffers (one host read). Each call
+        adds again, as the JAX class does: the render's autograd graph is
+        retained until the next render replaces it."""
         self._check_backward_supported()
         store = self._store
-        if store is None or store["mode"] != mode or store["out"] is None:
-            raise RuntimeError(f"call {'render_error' if mode == 'error' else 'render'} first "
-                               "(each render supports one backward)")
+        if store is None or store["mode"] != mode:
+            raise RuntimeError(f"call {'render_error' if mode == 'error' else 'render'} first")
         out, leaves = store["out"], store["leaves"]
-        store["out"] = None
         used = [x for x in leaves if x is not None]
-        grads = torch.autograd.grad(out, used, self._tensor(cotangent), allow_unused=True)
+        grads = torch.autograd.grad(out, used, self._tensor(cotangent), allow_unused=True, retain_graph=True)
         flat = torch.cat([(torch.zeros_like(x) if g is None else g).reshape(-1) for x, g in zip(used, grads)])
         parts = np.split(flat.cpu().numpy(), np.cumsum([x.numel() for x in used])[:-1])  # the one host read
         ij_b, colors_b, uv_b, shade_b, *texture_b = (p.reshape(x.shape) for p, x in zip(parts, used))
@@ -480,6 +481,7 @@ class Scene3D:
     def _render(self, camera, backface_culling, depth_only_scale, check_capacity):
         if self.mesh is None:
             raise ValueError("you need to provide a mesh first")
+        self._store = None  # the last render's autograd graph goes before this one is recorded
         cap, tiling, aa_window, aa_tex_window, aa_tex_plan = self._eager_plan(camera, backface_culling)
         leaves = self._diff_inputs(depth_only_scale is not None)
         buffers, _ = self._build_buffers(camera, *leaves, backface_culling, depth_only_scale)
@@ -504,16 +506,17 @@ class Scene3D:
 
     def render_backward(self, image_b) -> None:
         """Back-propagate ``image_b`` (the cotangent of the last render's
-        image) to the mesh, the lights and the texture."""
+        image) to the mesh, the lights and the texture. Each call stores the
+        gradients of its own cotangent, as the JAX class does: the render's
+        autograd graph is retained until the next render replaces it."""
         if self.perspective_correct:
             raise NotImplementedError("perspective_correct is not supported for gradient back propagation")
-        if self._store is None or self._store["image"] is None:
-            raise RuntimeError("call render or render_depth first (each render supports one backward)")
+        if self._store is None:
+            raise RuntimeError("call render or render_depth first")
         image, leaves = self._store["image"], self._store["leaves"]
         used = [x for x in leaves if x is not None]
         grads = torch.autograd.grad(image, used, torch.as_tensor(image_b).to(image.device, image.dtype),
-                                    allow_unused=True)
-        self._store["image"] = None
+                                    allow_unused=True, retain_graph=True)
         grads = iter(torch.zeros_like(x) if g is None else g for x, g in zip(used, grads))
         g = {name: (None if x is None else next(grads)) for name, x in zip(self._GRAD_NAMES, leaves)}
         mesh = self.mesh

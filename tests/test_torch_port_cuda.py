@@ -46,7 +46,11 @@ Scene2D untiled on the card against the CPU (the triangle soup, float64,
 1e-9), Scene2D above 256 faces on the kernels against its plain versions
 (B1 and B2 launched once a render; B1 alone when the scene holds a texture),
 and render_deferred on the duck (B1f
-at 14 attribute planes).
+at 14 attribute planes). The last three hold the large-mesh binners
+(supertiles on octahedron_mesh(5) at 2048², pairs on levels 6 and 7)
+against dense binning, B1b split over plane batches and slot windows
+against its plain version, and a second backward of one render on the card
+against the CPU.
 """
 
 import os
@@ -869,3 +873,116 @@ def test_render_deferred_runs_the_raster_kernel_at_d14(cuda_device, dtype):
     want = scenes["reference"].render_deferred(camera)
     for k in want:
         assert np.abs(got[k] - want[k]).max() <= limit * max(1.0, np.abs(want[k]).max()), k
+
+
+@pytest.mark.parametrize("case", ["supertiles-l5-2048", "pairs-l6-1024", "pairs-l7-2048"])
+def test_large_mesh_binners_match_dense_binning(cuda_device, case):
+    """Scene3D on octahedron meshes through the port's planner (chip_smoke.py
+    phase 9's configurations): the plan picks the binner named, a render
+    with check_capacity=True raises no overflow, and render_scene on its
+    buffers with the plan equals the same plan with dense binning: in
+    float32 image and z within 1e-6 and the gradients to ij and colors
+    within 1e-2 of scale (float atomics: two dense runs differ by up to
+    1.8e-3), in float64 all within 1e-9."""
+    import chip_smoke
+
+    binner, level, res = case.split("-")[0], int(case.split("-")[1][1:]), int(case.split("-")[2])
+    sigma = 0.0 if binner == "supertiles" else 1.0
+    obs = None
+    for dtype, lim_out, lim_grad in ((torch.float32, chip_smoke.LARGE_LIMIT_OUT, chip_smoke.LARGE_LIMIT_GRAD32),
+                                     (torch.float64, chip_smoke.LARGE_LIMIT64, chip_smoke.LARGE_LIMIT64)):
+        scene, camera = chip_smoke.large_scene(level, res, sigma, cuda_device, dtype)
+        plan = scene._eager_plan(camera)
+        tiling = plan[1]
+        assert (tiling.super_capacity > 0) if binner == "supertiles" else (tiling.pair_ry * tiling.pair_rx > 0)
+        image = scene.render(camera, check_capacity=True)
+        obs = (image + 0.05).clamp(0.0, 1.0) if obs is None else obs.to(dtype)
+        buffers = chip_smoke.large_buffers(scene, camera)
+        chip_smoke.check_against(f"{case} {dtype}",
+                                 chip_smoke.large_loss_grads(buffers, sigma, plan, obs, check_capacity=True),
+                                 chip_smoke.large_loss_grads(buffers, sigma, chip_smoke.dense_plan(plan), obs), print,
+                                 lim_out, lim_out, lim_grad)
+
+
+@pytest.mark.parametrize("case", ["planes-d14-cap1024", "slots-d1-cap16384"])
+def test_raster_bwd_split_matches_plain_version(cuda_device, case):
+    """B1b where one launch's table does not fit a block's shared memory, in
+    float64: the batched launches (two plane batches at D = 14 and capacity
+    1024; two slot windows at D = 1 and capacity 16384) against the plain
+    version within 1e-9 of scale, one launch a batch, every entry written
+    (a NaN-filled block waits in the allocator) and rows at or above a
+    tile's count exactly 0."""
+    from deodr_tpu_torch.ops import kernels
+    from deodr_tpu_torch.ops.kernels import TileGrid
+    from deodr_tpu_torch.ops.kernels import raster_kernel as rk
+
+    d, cap = (14, 1024) if case.startswith("planes") else (1, 16384)
+    grid = TileGrid(2, 3, 16, 128)
+    rng = np.random.RandomState(11)
+    hp, wp = grid.padded_hw
+    slot_map = torch.from_numpy(rng.randint(0, cap + 1, (hp, wp)).astype(np.int32)).to(cuda_device)
+    counts = torch.tensor([0, cap + 5, cap, cap // 2, 7, cap - 1], dtype=torch.int32, device=cuda_device)
+    g_vals = torch.from_numpy(rng.randn(d, hp, wp)).to(cuda_device)
+    batches = rk.raster_bwd_batches(cap, d, 8)
+    assert len(batches) == 2
+    want = rk.raster_bwd(slot_map, g_vals, counts, grid, cap, impl="reference")
+    _prefill_allocator(want.numel(), torch.float64, cuda_device)
+    kernels.reset_launches()
+    got = rk.raster_bwd(slot_map, g_vals, counts, grid, cap)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["raster_bwd"] == len(batches)
+    assert bool(torch.isfinite(got).all())
+    for t, n in enumerate(counts.clamp(max=cap).tolist()):
+        assert bool((got[t, n:] == 0).all()), t
+    assert float(want.abs().max()) > 0 and _rel(got, want) <= 1e-9
+
+
+def test_second_backward_on_the_card(cuda_device):
+    """Two render_backward calls after one render on the card, float64,
+    against the same calls on the CPU (1e-9 of scale): Scene3D on the
+    textured torus of tests/torch_port_scenes.py (tiled, kernels) stores
+    each call's gradients; Scene2D on the triangle soup (untiled) adds
+    them."""
+    from deodr_tpu_torch.camera import Camera
+    from deodr_tpu_torch.examples import triangle_soup_fitting as soup
+    from deodr_tpu_torch.geometry.mesh import ColoredTriMesh
+    from deodr_tpu_torch.scene import Scene3D
+    from torch_port_scenes import torus_arrays, torus_camera_arrays
+
+    a = torus_arrays(tex_size=64, uv_step=(3.5, 4.5))
+    extrinsic, intrinsic, height, width = torus_camera_arrays()
+    camera = Camera(extrinsic, intrinsic, height, width)
+    rng = np.random.RandomState(3)
+    cots = [rng.rand(height, width, 3) for _ in range(2)]
+    got = {}
+    for device, impl in ((cuda_device, "kernel"), (torch.device("cpu"), "reference")):
+        kw = {k: v for k, v in a.items() if k not in ("faces", "vertices")}
+        mesh = ColoredTriMesh(a["faces"], torch.from_numpy(a["vertices"]).to(device), **kw)
+        mesh.uv, mesh.texture = mesh.uv.to(device), mesh.texture.to(device)
+        scene = Scene3D(sigma=1.0, device=device, impl=impl)
+        scene.set_mesh(mesh)
+        scene.set_light(np.array([-0.4, -0.4, -0.8]), 0.4)
+        scene.set_background_color(np.array([0.2, 0.3, 0.5]))
+        scene.render(camera)
+        out = []
+        for cot in cots:
+            scene.render_backward(cot)
+            out.append([x.cpu() for x in (mesh._vertices_b, mesh.uv_b, mesh.texture_b, scene.light_directional_b)])
+        got[device.type] = out
+    for k in range(2):
+        for x, y in zip(got["cuda"][k], got["cpu"][k]):
+            assert _rel(x, y) <= 1e-9
+    assert _rel(got["cuda"][0][0], got["cuda"][1][0]) > 1e-6  # two cotangents, two sets of gradients
+
+    grads = {}
+    soup_cots = [rng.rand(200, 200, 3) for _ in range(2)]
+    for device in (cuda_device, torch.device("cpu")):
+        np.random.seed(2)
+        scene = soup.create_example_scene(device=device)
+        scene.clear_gradients()
+        scene.render(sigma=1)
+        for cot in soup_cots:
+            scene.render_backward(cot)
+        grads[device.type] = (scene.ij_b.copy(), scene.colors_b.copy())
+    for x, y in zip(grads["cuda"], grads["cpu"]):
+        assert np.abs(x - y).max() <= 1e-9 * max(1.0, np.abs(y).max())

@@ -254,16 +254,21 @@ def test_check_capacity_raises_on_undersized_tiling():
 
 @pytest.mark.parametrize("change", ["pair", "super"])
 def test_off_slice_options_raise(change):
-    """The large-mesh binners (pair expansion, supertiles) belong to a
-    later part of the port and raise."""
-    scene = scene_buffers_from_numpy(_fields(), device="cpu")
+    """The large-mesh binners (pair expansion, supertiles), which raised
+    before they were ported, now render as dense binning does: image,
+    z-buffer and the gradients to ij and colors bit-equal in float64 at
+    σ = 1 (the same slot lists, so the same operations in the same order)."""
+    f = _fields()
     tiling = port.TilingConfig(*TILING)
     if change == "pair":
-        tiling = tiling._replace(pair_ry=2, pair_rx=2)
+        other = tiling._replace(pair_ry=2, pair_rx=1)
     else:
-        tiling = tiling._replace(super_ty=1, super_tx=1, super_capacity=8)
-    with pytest.raises(NotImplementedError):
-        port.render_scene(scene, 1.0, tiling=tiling)
+        other = tiling._replace(super_ty=1, super_tx=1, super_capacity=16)
+    for error_mode in (False, True):
+        want = _port_render(f, 1.0, error_mode, torch.float64, tiling=tuple(tiling))
+        got = _port_render(f, 1.0, error_mode, torch.float64, tiling=tuple(other))
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
 
 
 def _jax_render_with(f, sigma, dtype, **kwargs):
@@ -358,9 +363,11 @@ def test_port_and_chip_smoke_import_no_jax():
         "import deodr_tpu_torch.validate, deodr_tpu_torch.geometry.primitives, deodr_tpu_torch.io.meshlab; "
         "import deodr_tpu_torch.examples.triangle_soup_fitting, deodr_tpu_torch.examples.textured_grid_fitting; "
         "import deodr_tpu_torch.examples.eigen_faces, deodr_tpu_torch.examples.render_mesh; "
-        "import deodr_tpu_torch.examples.turntable; "
+        "import deodr_tpu_torch.examples.turntable, deodr_tpu_torch.camera, deodr_tpu_torch.geometry.mesh; "
+        "import deodr_tpu_torch.ops.kernels.raster_kernel; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'deodr_tpu.')) or m == 'deodr_tpu']; "
-        "assert not bad, bad"
+        "assert not bad, bad; "
+        "assert 'matplotlib' not in sys.modules, 'importing the port pulled in matplotlib'"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True, timeout=120)
