@@ -153,12 +153,36 @@ Phases, each of which fails the run (non-zero exit) on any miss:
    capacity 1024) through ``render_scene`` with a backward against
    ``impl="reference"`` (1e-9 of scale, one launch a batch), and slot
    windows at capacity 16384 (float64, D = 1) against the plain version;
-10. one JSON line ``{"kernels": [...]}``, one record per kernel and main path
+10. scale-out and auxiliaries: (a) the bench scene's tile-sharded fwd+bwd
+   (``deodr_tpu_torch.parallel``) at world size 1 on NCCL in this process
+   (float64 image and z bit-equal to ``render_scene``'s, gradients within
+   1e-12 of scale) and at world size 2 on gloo, two spawned ranks sharing
+   the card (float64 within 1e-9 of the single-process render; float32
+   bit-equal in image and z to the same bands rendered in one process,
+   gradients within 1e-2 of scale beside the spread of two such runs, and
+   the pixels whose coverage differs from the unsharded render bounded);
+   B1f, B1b, B2f and B2b launched in each rank, one all-gather forward and
+   one all-reduce of the ij and colors gradients backward; the sharded and
+   the single-process step's median; (b) in the same ranks the duck's
+   textured multi-view step (float64, 4 views, 2 a rank) against the
+   sequential sum of the views' losses and gradients (1e-9), its one
+   all-reduce exactly texture + uv + shade + loss, B1 and B3 launched in
+   each rank; (c) the view-sharded multi-frame fitter (4 frames of
+   ``octahedron_mesh(3)``, 3 steps) against the sequential fitter; (d) 30
+   iterations of the Adam depth fit (last energy below 0.85 of the first)
+   and its ms per iteration; (e) a batch of 4 bench scenes through
+   ``render_scene_batch`` against 4 single renders (each kernel launched 4
+   times); (f) 10 frames of the headless viewer on the duck across its
+   toggles, each within one level of the same view with
+   ``impl="reference"``, and its frames per second. The ranks run
+   ``scale_out_rank``; a rank that fails fails the run;
+11. one JSON line ``{"kernels": [...]}``, one record per kernel and main path
    that launches it (launches on that path, error, times, the least time the
-   card could take at that path's shapes): 39 records over the paths
+   card could take at that path's shapes): 47 records over the paths
    ``bench``, ``duck``, ``duck_scene3d``, ``duck_quad``, ``bench_nonstrict``,
    ``duck_persp``, ``depth_fit``, ``rgb_fit``, ``scene2d``,
-   ``deferred_duck`` and ``large_mesh``. ``ms`` times calls
+   ``deferred_duck``, ``large_mesh``, ``sharded_bench`` (rank 0's band)
+   and ``multiview_duck`` (float64). ``ms`` times calls
    of the wrapper with CUDA events, host cost of the call included;
    ``device_ms`` (and ``library_device_ms``) is the device time of one call
    from ``torch.profiler``, every kernel's in one profiler session (each
@@ -172,7 +196,7 @@ Phases, each of which fails the run (non-zero exit) on any miss:
    bound counts only the (pixel, slot) pairs its slots cover; each backward
    bound is printed twice: with the used rows of its table written, and
    with the whole table (the zero rows up to the capacity) written;
-11. last line ``{"ok": true, "device": {...}}``.
+12. last line ``{"ok": true, "device": {...}}``.
 
 The scenes come from ``deodr_tpu_torch.bench_scene`` (numpy, seed 0, as
 ``bench.py`` builds it), ``deodr_tpu_torch.duck_scene`` (``data/duck.obj``
@@ -192,6 +216,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -225,12 +250,16 @@ FIT_PATHS = ("depth_fit", "rgb_fit")
 # "scene2d" is Scene2D above 256 faces (the tiled route, float64), "deferred_duck" Scene3D.render_deferred on the duck
 # (forward only, 14 attribute planes, float64), "large_mesh" Scene3D on octahedron_mesh(7) at 2048² (pair binning,
 # float32)
+# "sharded_bench" is the bench's tile-sharded render over 2 ranks (its kernels measured on rank 0's band, 256 rows),
+# "multiview_duck" the duck's textured multi-view step over 2 ranks (float64, 2 views a rank)
 KERNEL_PATHS = {"raster_fwd": ("bench",) + DUCK_PATHS + MODE_PATHS + FIT_PATHS + ("scene2d", "deferred_duck",
-                                                                                  "large_mesh"),
-                "raster_bwd": ("bench",) + DUCK_PATHS + MODE_PATHS + FIT_PATHS + ("scene2d", "large_mesh"),
-                "edge_fwd": ("bench",) + FIT_PATHS + ("scene2d", "large_mesh"),
-                "edge_bwd": ("bench",) + FIT_PATHS + ("scene2d", "large_mesh"),
-                "edge_tex_fwd": DUCK_PATHS, "edge_tex_bwd": DUCK_PATHS,
+                                                                                  "large_mesh", "sharded_bench",
+                                                                                  "multiview_duck"),
+                "raster_bwd": ("bench",) + DUCK_PATHS + MODE_PATHS + FIT_PATHS + ("scene2d", "large_mesh",
+                                                                                  "sharded_bench", "multiview_duck"),
+                "edge_fwd": ("bench",) + FIT_PATHS + ("scene2d", "large_mesh", "sharded_bench"),
+                "edge_bwd": ("bench",) + FIT_PATHS + ("scene2d", "large_mesh", "sharded_bench"),
+                "edge_tex_fwd": DUCK_PATHS + ("multiview_duck",), "edge_tex_bwd": DUCK_PATHS + ("multiview_duck",),
                 "quad_blend_fwd": ("duck_quad",), "quad_blend_bwd": ("duck_quad",)}
 KERNEL_SOURCES = {
     "raster_fwd": ("deodr_tpu_torch/csrc/raster_kernel.cu", "deodr_tpu/ops/pallas/raster_kernel.py:137"),
@@ -304,8 +333,7 @@ def device_times(fns, device, reps: int = 10):
     cost of calling it → key → (ms, device operations) per call; (None,
     None) without a card. Raises ``Failure`` where three sessions give no
     such groups."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from deodr_tpu_torch.profiling import device_profile
 
     if device.type != "cuda" or not fns:
         return dict.fromkeys(fns, (None, None))
@@ -322,7 +350,7 @@ def device_times(fns, device, reps: int = 10):
 
     seen = []
     for _ in range(3):  # the profiler now and then records no device events at all
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with device_profile() as prof:
             for fn, _ in fns.values():  # the warm-up group: a session can miss its first tens of device events
                 for _ in range(reps):
                     fn()
@@ -332,8 +360,7 @@ def device_times(fns, device, reps: int = 10):
                 for _ in range(reps):
                     fn()
                 torch.cuda.synchronize()
-        ops = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                     if e.device_type == DeviceType.CUDA)
+        ops = [(start, start + dur, name) for start, dur, name in prof.events]
         groups = []
         for op in ops:
             if not groups or op[0] - groups[-1][-1][1] > 3000:
@@ -673,31 +700,27 @@ def profile_step(step, tag, device, say, steps=5):
     step (profiler on), device busy time (sum of the card's kernel and copy
     durations, one stream) and the number of device operations per step,
     and the device time of the heaviest operations by name."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from deodr_tpu_torch.profiling import device_profile
 
     if device.type != "cuda":
         say(f"profile {tag}: not measured (no card)")
         return
     step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    device_ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not device_ops:
+    if not prof.times:
         say(f"profile {tag}: wall {wall_ms:.4f} ms/step; device time not measured (the profiler saw no device ops)")
         return
-    by_name = {}
-    for e in device_ops:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
-    busy = sum(by_name.values())
+    by_name = {name: us / 1e3 / steps for name, us in prof.times.items()}
+    busy = prof.total_us / 1e3 / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     say(f"profile {tag}: wall {wall_ms:.4f} ms/step (profiler on), device busy {busy:.4f} ms/step "
-        f"({100 * busy / wall_ms:.2f}% of wall), {len(device_ops) / steps:.0f} device ops/step")
+        f"({100 * busy / wall_ms:.2f}% of wall), {sum(prof.counts.values()) / steps:.0f} device ops/step")
     say(f"profile {tag} top device time (ms/step): " + "; ".join(f"{name[:60]} {ms:.4f}" for name, ms in top))
 
 
@@ -770,7 +793,7 @@ def check_tex_kernels(scene, obs, device, say, plan=None):
                     device_fn=lambda args=args: etk.edge_tex_fwd(*args),
                     plain_ms=time_ms(lambda: etk.edge_tex_fwd(*args, impl="reference"), 3, device),
                     bound=bound_ms(e_rows * w_row * esz + p_e * esz * (2 * c + 1) + tap_bytes,
-                                   e_visits * OPS_PER_VISIT["edge_tex_fwd"]),
+                                   e_visits * OPS_PER_VISIT["edge_tex_fwd"], esz),
                 )
                 out["edge_tex_bwd"].update(
                     ms=time_ms(lambda: etk.edge_tex_bwd(*bargs), 20, device),
@@ -778,11 +801,11 @@ def check_tex_kernels(scene, obs, device, say, plan=None):
                     plain_ms=time_ms(lambda: etk.edge_tex_bwd(*bargs, impl="reference"), 3, device),
                     bound=bound_ms(e_rows * (w_row + 12 + 3 * c) * esz + p_e * esz * (3 * c + 1) + 2 * tap_bytes
                                    + texture.numel() * esz,
-                                   e_visits * OPS_PER_VISIT["edge_tex_bwd"]),
+                                   e_visits * OPS_PER_VISIT["edge_tex_bwd"], esz),
                 )
                 full = bound_ms(e_rows * w_row * esz + et.grid.n_tiles * e_cap * (12 + 3 * c) * esz
                                 + p_e * esz * (3 * c + 1) + 2 * tap_bytes + texture.numel() * esz,
-                                e_visits * OPS_PER_VISIT["edge_tex_bwd"])[0]
+                                e_visits * OPS_PER_VISIT["edge_tex_bwd"], esz)[0]
                 say(f"edge_tex_bwd bound {out['edge_tex_bwd']['bound'][0]:.5f} ms with the {e_rows} used rows "
                     f"written, {full:.5f} ms with all {et.grid.n_tiles} x {e_cap} rows written")
     return out
@@ -2061,6 +2084,404 @@ def run_large_meshes(device, say, scenes=LARGE_SCENES, kernel_scene=LARGE_KERNEL
     return measured, launches, ms
 
 
+# ------------------------------------------------------ scale-out and auxiliaries (phase 10)
+
+# two ranks share the one card over gloo (NCCL refuses two ranks on one card); NCCL runs at world size 1
+SCALE_WORLD = 2
+# the duck's textured multi-view step: views (ij perturbed by 0.1 px, seed 7), float64, and its learning rate
+MULTIVIEW_VIEWS, MULTIVIEW_LR = 4, 1e-3
+# the view-sharded multi-frame fitter: octahedron_mesh(FIT_LEVEL) (512 faces: the tiled route, B1 and B2)
+FIT_FRAMES, FIT_STEPS, FIT_LEVEL, FIT_H, FIT_W = 4, 3, 3, 96, 128
+ADAM_ITERS, ADAM_BAR = 30, 0.85
+BATCH = 4
+VIEWER_W, VIEWER_H, VIEWER_FPS_FRAMES = 320, 240, 20
+# the viewer's 10 frames: the action before each (a key, or a camera move)
+VIEWER_ACTIONS = ("start", "rotate", "zoom", "l", "l", "p", "p", "a", "r", "r")
+SHARDED_STEPS = 10
+
+
+def sharded_bench_step(mesh, scene, tiling, obs):
+    """One fwd+bwd of the bench loss through the tile-sharded render →
+    dict(out, z, ij, colors) (the image, its z-buffer and the gradients)."""
+    from deodr_tpu_torch.parallel import make_tile_sharded_render
+
+    render = make_tile_sharded_render(scene, 1.0, mesh, aa_edge_capacity=AA_EDGE_CAPACITY, tiling=tiling)
+
+    def step():
+        ij = scene.ij.detach().clone().requires_grad_(True)
+        colors = scene.colors.detach().clone().requires_grad_(True)
+        image, z = render(dataclasses.replace(scene, ij=ij, colors=colors))
+        ((image - obs) ** 2).sum().backward()
+        return dict(out=image.detach(), z=z, ij=ij.grad, colors=colors.grad)
+
+    return step
+
+
+def single_bench(scene, tiling, obs):
+    out, _, g_ij, g_c, z = loss_and_grads(scene, 1.0, tiling, obs, False, "kernel", check_capacity=False,
+                                          with_z=True)
+    return dict(out=out, z=z, ij=g_ij, colors=g_c)
+
+
+def banded_bench(scene, tiling, obs, n_bands):
+    """The tile-sharded bench step's arithmetic in one process: each band
+    rendered with its rows' translation, the bands stitched, one backward →
+    dict(out, z, ij, colors)."""
+    from deodr_tpu_torch import render_scene
+
+    ij = scene.ij.detach().clone().requires_grad_(True)
+    colors = scene.colors.detach().clone().requires_grad_(True)
+    band_h = -(-scene.height // n_bands)
+    bands = [render_scene(dataclasses.replace(scene, ij=ij - ij.new_tensor([0.0, d * band_h]), colors=colors,
+                                              height=band_h), 1.0, aa_edge_capacity=AA_EDGE_CAPACITY, tiling=tiling)
+             for d in range(n_bands)]
+    image = torch.cat([b[0] for b in bands])[:scene.height]
+    ((image - obs) ** 2).sum().backward()
+    return dict(out=image.detach(), z=torch.cat([b[1] for b in bands])[:scene.height], ij=ij.grad, colors=colors.grad)
+
+
+def bench64(fields, device):
+    from deodr_tpu_torch import scene_buffers_from_numpy
+
+    obs = torch.from_numpy(np.random.RandomState(3).rand(fields["height"], fields["width"], 3)).to(device)
+    return scene_buffers_from_numpy(fields, device=device, dtype=torch.float64), obs
+
+
+def duck_views(device):
+    """The duck in float64, its observation, and MULTIVIEW_VIEWS views'
+    ij (the duck's, perturbed by 0.1 px) and observations."""
+    from deodr_tpu_torch import duck_scene as ds
+    from deodr_tpu_torch import render_scene, scene_buffers_from_numpy
+
+    fields = ds.duck_scene_fields()
+    scene = scene_buffers_from_numpy(fields, device=device, dtype=torch.float64)
+    with torch.no_grad():
+        image, _, _ = render_scene(scene, ds.DUCK_SIGMA, aa_edge_capacity=ds.DUCK_AA_EDGE_CAPACITY,
+                                   tiling=ds.DUCK_TILING, aa_tex_plan=ds.DUCK_TEX_PLAN)
+    obs = (image + 0.05).clamp(0.0, 1.0)
+    rng = np.random.RandomState(7)
+    ij = torch.from_numpy(fields["ij"][None] + rng.randn(MULTIVIEW_VIEWS, *fields["ij"].shape) * 0.1).to(device)
+    return scene, obs, ij, obs[None].expand(MULTIVIEW_VIEWS, -1, -1, -1).contiguous()
+
+
+def fitter_of(device, dtype=torch.float64):
+    """The multi-frame fitter of tests/test_parallel.py on octahedron_mesh(FIT_LEVEL)."""
+    from deodr_tpu_torch import MeshRGBFitterWithPoseMultiFrame
+    from deodr_tpu_torch.geometry.primitives import octahedron_mesh
+
+    base = octahedron_mesh(FIT_LEVEL)
+    rng = np.random.RandomState(0)
+    f = MeshRGBFitterWithPoseMultiFrame(
+        vertices=base.vertices.numpy(), faces=base.faces, euler_init=np.zeros((FIT_FRAMES, 3)),
+        translation_init=np.zeros((FIT_FRAMES, 3)), default_color=np.array([0.4, 0.3, 0.25]),
+        default_light_directional=np.array([0.1, 0.5, 0.4]), default_light_ambient=0.6, device=device, dtype=dtype)
+    f.set_background_color(np.array([0.1, 0.2, 0.3]))
+    f.set_images([np.clip(0.5 + 0.2 * rng.rand(FIT_H, FIT_W, 3), 0, 1) for _ in range(FIT_FRAMES)])
+    return f
+
+
+def run_fitter(f):
+    """FIT_STEPS steps → (energies, the state's arrays by name)."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        energies = [f.step()[0] for _ in range(FIT_STEPS)]
+    return energies, dict(vertices=f.vertices, quaternion=f.transform_quaternion, mesh_color=f.mesh_color,
+                          light_directional=f.light_directional)
+
+
+def host(d):
+    return {k: v.detach().cpu() if isinstance(v, torch.Tensor) else v for k, v in d.items()}
+
+
+def scale_out_rank(rank, world, device_type="cuda"):
+    """Phase 10's distributed work in one rank of a ("views", "tiles") mesh
+    on the card: the bench's tile-sharded fwd+bwd in float64 and float32
+    (and the float32 step's median over SHARDED_STEPS), the duck's textured
+    multi-view step and the view-sharded fitter, each with its launches
+    and collectives → results on the host."""
+    from deodr_tpu_torch import duck_scene as ds
+    from deodr_tpu_torch.ops import kernels
+    from deodr_tpu_torch.parallel import make_device_mesh, make_textured_multiview_step, sharding
+
+    device = torch.device(device_type)
+    out = {}
+    tiles = make_device_mesh(1, world, device_type)
+    fields, scene, tiling, obs = bench_setup(device)
+    scene64, obs64 = bench64(fields, device)
+    for tag, s, o in (("bench64", scene64, obs64), ("bench32", scene, obs)):
+        step = sharded_bench_step(tiles, s, tiling, o)
+        kernels.reset_launches()
+        sharding.reset_collectives()
+        out[tag] = host(step())
+        out[tag]["launches"] = dict(kernels.LAUNCHES)
+        out[tag]["collectives"] = [tuple(c) for c in sharding.COLLECTIVES]
+    out["bench32"]["ms"] = median_step_ms(step, device, reps=SHARDED_STEPS)
+
+    views = make_device_mesh(world, 1, device_type)
+    scene_d, _, ij, obs_d = duck_views(device)
+    params = {k: getattr(scene_d, k) for k in ("texture", "uv", "shade")}
+    step = make_textured_multiview_step(scene_d, ds.DUCK_SIGMA, views, lr=MULTIVIEW_LR,
+                                        aa_edge_capacity=ds.DUCK_AA_EDGE_CAPACITY, tiling=ds.DUCK_TILING,
+                                        aa_tex_plan=ds.DUCK_TEX_PLAN)
+    kernels.reset_launches()
+    sharding.reset_collectives()
+    new, loss = step(params, ij, obs_d)
+    out["duck"] = dict(params=host(new), loss=float(loss), launches=dict(kernels.LAUNCHES),
+                       collectives=[tuple(c) for c in sharding.COLLECTIVES])
+
+    f = fitter_of(device)
+    f.set_device_mesh(views)
+    kernels.reset_launches()
+    sharding.reset_collectives()
+    energies, state = run_fitter(f)
+    out["fitter"] = dict(energies=energies, state=state, launches=dict(kernels.LAUNCHES),
+                         collectives=[tuple(c) for c in sharding.COLLECTIVES])
+    return out
+
+
+def check_launches(tag, launches, names, device, say, n=None):
+    """Each kernel of ``names`` launched (exactly ``n`` times where given);
+    checked where the kernels run, on the card."""
+    say(f"launches on {tag}: " + ", ".join(f"{k} {launches[k]}" for k in names))
+    for k in names:
+        check(device.type != "cuda" or (launches[k] > 0 if n is None else launches[k] == n),
+              f"{tag}: {k} launched {launches[k]} times")
+
+
+def run_tile_sharded(device, say):
+    """Phase 10a: the bench's tile-sharded fwd+bwd at world size 1 (NCCL,
+    in this process) and SCALE_WORLD (gloo, spawned ranks on this card),
+    against the single-process render; the other distributed paths (10b,
+    10c) run in the same ranks → (rank results, kernels measured on a band)."""
+    from deodr_tpu_torch.ops import kernels
+    from deodr_tpu_torch.parallel import init_process_group, make_device_mesh, run_ranks, sharding
+
+    fields, scene, tiling, obs = bench_setup(device)
+    scene64, obs64 = bench64(fields, device)
+    want64 = single_bench(scene64, tiling, obs64)
+
+    # world size 1 on NCCL: the band is the frame, so the render is the single-process one
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        init_process_group(0, 1, "file://" + os.path.join(tmp, "rendezvous"), backend)
+        try:
+            kernels.reset_launches()
+            sharding.reset_collectives()
+            got = sharded_bench_step(make_device_mesh(1, 1, device.type), scene64, tiling, obs64)()
+            check_launches(f"tile-sharded bench, world size 1 ({backend})", kernels.LAUNCHES, UNTEXTURED_KERNELS,
+                           device, say)
+            say(f"tile-sharded bench, world size 1 ({backend}): collectives {[c[:2] for c in sharding.COLLECTIVES]}")
+        finally:
+            torch.distributed.destroy_process_group()
+    check(torch.equal(got["out"], want64["out"]) and torch.equal(got["z"], want64["z"]),
+          "tile-sharded bench at world size 1: the image or z differs from render_scene's")
+    check_against(f"tile-sharded bench float64, world size 1 ({backend}), image and z bit-equal", got, want64, say,
+                  0.0, 0.0, 1e-12)
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(scale_out_rank, SCALE_WORLD, (device.type,), backend="gloo", device=device.type,
+                      threads=None if device.type == "cuda" else 1)
+    say(f"{SCALE_WORLD} ranks (gloo, one card) ran the bench, the duck's multi-view step and the fitter in "
+        f"{time.perf_counter() - t0:.1f} s")
+    band_h = -(-fields["height"] // SCALE_WORLD)
+    # float32: a band's translation rounds the triangles' setup differently, and pixels within an ulp of an edge
+    # may change sides; the sharded step is held to the same bands rendered in one process (bit-equal image and
+    # z, gradients beside the spread of two such runs), and its coverage against the unsharded render is counted
+    want32 = [banded_bench(scene, tiling, obs, SCALE_WORLD) for _ in range(2)]
+    check_against("bench float32, its bands rendered in one process, run twice (the spread: float atomics)",
+                  want32[1], want32[0], say, 0.0, 0.0, LARGE_LIMIT_GRAD32)
+    single32 = single_bench(scene, tiling, obs)["z"].cpu()
+    frame32 = fields["height"] * fields["width"] * 3 * 4
+    for rank, r in enumerate(ranks):
+        tag = f"tile-sharded bench, world size {SCALE_WORLD} (gloo), rank {rank}"
+        check_against(f"{tag}, float64", r["bench64"], host(want64), say, *(LARGE_LIMIT64,) * 3)
+        check_against(f"{tag}, float32, against its bands in one process", r["bench32"], host(want32[0]), say,
+                      0.0, 0.0, LARGE_LIMIT_GRAD32)
+        flips = int((torch.isfinite(r["bench32"]["z"]) != torch.isfinite(single32)).sum())
+        say(f"{tag}, float32: {flips} pixels covered differently from the unsharded render (limit "
+            f"{MAX_BOUNDARY_SHARE:g} of {fields['height'] * fields['width']})")
+        check(flips <= MAX_BOUNDARY_SHARE * fields["height"] * fields["width"], f"{tag}: coverage differs too often")
+        for dt in ("bench64", "bench32"):
+            check_launches(f"{tag} ({dt})", r[dt]["launches"], UNTEXTURED_KERNELS, device, say)
+            col = r[dt]["collectives"]
+            say(f"{tag} ({dt}) collectives: " + "; ".join(f"{c[0]} {c[1]} B{' (backward)' if c[3] else ''}"
+                                                           for c in col))
+            n_grad = fields["ij"].size + fields["colors"].size
+            itemsize = 8 if dt == "bench64" else 4
+            check([c[0] for c in col] == ["all_gather", "all_reduce"] and col[1][3]
+                  and col[0][1] == band_h * fields["width"] * 4 * itemsize and col[1][1] == n_grad * itemsize
+                  and col[1][1] < frame32, f"{tag} ({dt}): unexpected collectives {col}")
+    ms_single = median_step_ms(lambda: single_bench(scene, tiling, obs), device, reps=SHARDED_STEPS)
+    say(f"bench fwd+bwd step sigma=1, float32: single process median {ms_single:.4f} ms; tile-sharded over "
+        f"{SCALE_WORLD} gloo ranks on one card median {ranks[0]['bench32']['ms']:.4f} ms (rank 0; both ranks share "
+        "the card and the band exchange is staged through host memory: not a multi-GPU speed)")
+
+    # the kernels at the band's shapes (rank 0's band), against their plain versions
+    band = dataclasses.replace(scene, height=band_h)
+    measured = check_kernels(band, tiling, obs[:band_h], device, say)
+    return ranks, measured, dict(single=ms_single, sharded=ranks[0]["bench32"]["ms"])
+
+
+def run_multiview_duck(ranks, device, say):
+    """Phase 10b: the duck's textured multi-view step (float64) over
+    SCALE_WORLD ranks against the sequential sum of its views' losses and
+    gradients; exactly texture + uv + shade + loss all-reduced; B1 and B3
+    launched in each rank → kernels measured at the float64 duck's shapes."""
+    names = ("texture", "uv", "shade")
+    scene, obs, ij, obs_v = duck_views(device)
+    loss, grads = 0.0, {k: 0.0 for k in names}
+    for v in range(MULTIVIEW_VIEWS):
+        _, _, l_v, g_v = duck_loss_and_grads(dataclasses.replace(scene, ij=ij[v]), obs_v[v], "kernel")
+        loss += float(l_v)
+        grads = {k: grads[k] + g_v[k] for k in names}
+    n_bytes = (sum(getattr(scene, k).numel() for k in names) + 1) * 8
+    for rank, r in enumerate(ranks):
+        tag = f"duck multi-view step, {MULTIVIEW_VIEWS} views over {SCALE_WORLD} ranks, rank {rank}"
+        d = r["duck"]
+        errs = {k: rel_err((getattr(scene, k).cpu() - d["params"][k]) / MULTIVIEW_LR, grads[k].cpu()) for k in names}
+        e_loss = abs(d["loss"] - loss) / abs(loss)
+        say(f"{tag}: loss {d['loss']:.6f} vs sequential {loss:.6f} (rel {e_loss:.3g}, limit 1e-9); update err of "
+            f"scale (limit 1e-9): " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+        check(e_loss <= 1e-9 and all(v <= 1e-9 for v in errs.values()), f"{tag}: differs from the sequential sum")
+        check_launches(tag, d["launches"], ("raster_fwd", "raster_bwd", "edge_tex_fwd", "edge_tex_bwd"), device, say,
+                       MULTIVIEW_VIEWS // SCALE_WORLD)
+        col = d["collectives"]
+        say(f"{tag}: collectives {[c[:2] for c in col]}; texture + uv + shade + loss = {n_bytes} B")
+        check([c[:2] for c in col] == [("all_reduce", n_bytes)], f"{tag}: the step's collectives are not one "
+                                                                   f"all-reduce of texture + uv + shade + loss")
+    return check_tex_kernels(scene, obs, device, say)
+
+
+def run_sharded_fitter(ranks, device, say):
+    """Phase 10c: the view-sharded multi-frame fitter against the sequential
+    one (float64, tests/test_parallel.py's tolerances)."""
+    energies, state = run_fitter(fitter_of(device))
+    for rank, r in enumerate(ranks):
+        tag = f"multi-frame fitter, {FIT_FRAMES} frames of octahedron_mesh({FIT_LEVEL}) over {SCALE_WORLD} ranks, rank {rank}"
+        f = r["fitter"]
+        e_rel = max(abs(a - b) / abs(b) for a, b in zip(f["energies"], energies))
+        errs = {k: float(np.abs(f["state"][k] - state[k]).max()) for k in state}
+        say(f"{tag}: energies {' '.join(f'{e:.6f}' for e in f['energies'])} (rel {e_rel:.3g} of the sequential "
+            f"fit's, limit 1e-9); state err (vertices 1e-10, others 1e-12): "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+        check(e_rel <= 1e-9 and errs["vertices"] <= 1e-10
+              and all(v <= 1e-12 for k, v in errs.items() if k != "vertices"),
+              f"{tag}: differs from the sequential fitter")
+        check_launches(tag, f["launches"], UNTEXTURED_KERNELS, device, say)
+        check([c[0] for c in f["collectives"]] == ["all_gather", "all_reduce"] * FIT_STEPS,
+              f"{tag}: unexpected collectives {f['collectives']}")
+
+
+def run_adam(device, say):
+    """Phase 10d: the Adam depth fit, ADAM_ITERS iterations → ms per iteration."""
+    from deodr_tpu_torch.examples import optax_fitting
+
+    t0 = time.perf_counter()
+    energies = optax_fitting.run(max_iter=ADAM_ITERS, device=device)
+    ms = (time.perf_counter() - t0) * 1e3 / ADAM_ITERS
+    say(f"Adam depth fit: energy {energies[0]:.4f} -> {energies[-1]:.4f} in {ADAM_ITERS} iterations (last below "
+        f"{ADAM_BAR} x the first), {ms:.4f} ms per iteration (host clock, set-up included)")
+    check(all(np.isfinite(energies)) and energies[-1] < ADAM_BAR * energies[0], "the Adam depth fit did not converge")
+    return ms
+
+
+def run_batch(device, say):
+    """Phase 10e: a batch of BATCH bench scenes (ij perturbed) through
+    render_scene_batch against BATCH single renders → ms per scene, batched
+    and single."""
+    from deodr_tpu_torch.ops import kernels
+    from deodr_tpu_torch.ops.render import render_scene_batch
+
+    _, scene, tiling, obs = bench_setup(device)
+    rng = np.random.RandomState(5)
+    ij = scene.ij[None] + torch.from_numpy(rng.randn(BATCH, *scene.ij.shape).astype(np.float32) * 0.5).to(device)
+
+    def batched():
+        leaf = ij.detach().clone().requires_grad_(True)
+        colors = scene.colors.detach().clone().requires_grad_(True)
+        images, z, _ = render_scene_batch(dataclasses.replace(scene, ij=leaf, colors=colors), 1.0,
+                                          aa_edge_capacity=AA_EDGE_CAPACITY, tiling=tiling)
+        ((images - obs) ** 2).sum().backward()
+        return images.detach(), z, leaf.grad, colors.grad
+
+    def singles():
+        return [single_bench(dataclasses.replace(scene, ij=ij[b]), tiling, obs) for b in range(BATCH)]
+
+    kernels.reset_launches()
+    images, z, g_ij, g_c = batched()
+    check_launches(f"a batch of {BATCH} bench scenes (one batched render and its backward)", kernels.LAUNCHES,
+                   UNTEXTURED_KERNELS, device, say, BATCH)
+    want = singles()
+    check(tuple(images.shape) == (BATCH, scene.height, scene.width, 3), "the batch's images have the wrong shape")
+    for b in range(BATCH):
+        got = dict(out=images[b], z=z[b], ij=g_ij[b], colors=None)
+        check_against(f"batch scene {b} against its single render", {k: v for k, v in got.items() if v is not None},
+                      {k: v for k, v in want[b].items() if k != "colors"}, say, LARGE_LIMIT_OUT, LARGE_LIMIT_OUT,
+                      LARGE_LIMIT_GRAD32)
+    check(rel_err(g_c, sum(w["colors"] for w in want)) <= LARGE_LIMIT_GRAD32, "the batch's colors gradient differs")
+    ms = dict(batched=median_step_ms(batched, device, reps=10) / BATCH,
+              single=median_step_ms(singles, device, reps=10) / BATCH)
+    say(f"batch of {BATCH} bench scenes, fwd+bwd: {ms['batched']:.4f} ms a scene batched, {ms['single']:.4f} ms a "
+        f"scene as {BATCH} single renders (median of 10)")
+    return ms
+
+
+def viewer_reference_frame(viewer):
+    """The viewer's current view rendered with impl='reference', as a frame."""
+    impl = viewer.impl
+    viewer.impl = "reference"
+    viewer._rebuild_scene()
+    image = viewer.scene.render(viewer.interactor.camera()).cpu().numpy()
+    viewer.impl = impl
+    viewer._rebuild_scene()
+    return (np.clip(image, 0, 1) * 255).astype(np.uint8)
+
+
+def run_viewer(device, say):
+    """Phase 10f: the headless viewer on the duck, a frame after each of
+    VIEWER_ACTIONS against the same view with impl='reference' (at most one
+    level apart), then its frames per second on the kernels → fps."""
+    from deodr_tpu_torch.examples.mesh_viewer import Viewer
+
+    viewer = Viewer(width=VIEWER_W, height=VIEWER_H, headless=True, device=device)
+    for action in VIEWER_ACTIONS:
+        if action == "rotate":
+            viewer.interactor.rotate(25, 10)
+        elif action == "zoom":
+            viewer.interactor.zoom(0.8)
+        elif action != "start":
+            viewer.process_key(ord(action))
+        frame = viewer.render_frame()
+        ref = viewer_reference_frame(viewer)
+        off = int(np.abs(frame.astype(int) - ref.astype(int)).max())
+        say(f"viewer after {action!r} (route {viewer.impl}, sigma {viewer.scene.sigma:g}, lights "
+            f"{viewer.use_lights}, perspective {viewer.perspective_correct}): {int((frame != ref).any(axis=2).sum())} "
+            f"pixels differ from impl='reference', by at most {off} level(s) (limit 1)")
+        check(frame.shape == (VIEWER_H, VIEWER_W, 3) and off <= 1, f"viewer after {action!r}: the frame differs")
+    viewer = Viewer(width=VIEWER_W, height=VIEWER_H, headless=True, device=device)
+    viewer.render_frame()
+    t0 = time.perf_counter()
+    for _ in range(VIEWER_FPS_FRAMES):
+        viewer.interactor.rotate(3, 0)
+        viewer.render_frame()
+    fps = VIEWER_FPS_FRAMES / (time.perf_counter() - t0)
+    say(f"viewer on the duck at {VIEWER_W}x{VIEWER_H}, kernels, sigma=1: {fps:.2f} frames per second "
+        f"({VIEWER_FPS_FRAMES} frames, host clock, the read-back included)")
+    return fps
+
+
+def run_scale_out(device, say):
+    """Phase 10; returns (measurements, launches, ms) per path."""
+    t0 = time.perf_counter()
+    ranks, bench_measured, ms = run_tile_sharded(device, say)
+    measured = {"sharded_bench": bench_measured, "multiview_duck": run_multiview_duck(ranks, device, say)}
+    launches = {"sharded_bench": ranks[0]["bench32"]["launches"], "multiview_duck": ranks[0]["duck"]["launches"]}
+    run_sharded_fitter(ranks, device, say)
+    ms = dict(sharded_bench=ms, adam_iteration=run_adam(device, say), batch=run_batch(device, say),
+              viewer_fps=run_viewer(device, say))
+    say(f"phase 10 (scale-out and auxiliaries) took {time.perf_counter() - t0:.1f} s")
+    return measured, launches, ms
+
+
 def run(device="cuda", height=512, width=512, n_tri=200, smi_line=None):
     """All phases; raises on any miss. Returns the kernels record and the
     step times. A smaller bench scene only serves a rehearsal on the CPU;
@@ -2138,10 +2559,16 @@ def run(device="cuda", height=512, width=512, n_tri=200, smi_line=None):
     # and B1b split where its table does not fit shared memory
     measured["large_mesh"], launches["large_mesh"], ms["large_mesh"] = run_large_meshes(device, say)
 
-    # 10. kernels line: one record per kernel and main path that launches it (the raster forward
-    # runs on all eleven, with 3 attribute planes on the bench scene, Scene2D and the large mesh, 7 on the duck, 8 on
-    # the perspective duck, 1 on the depth fit, 3 on the RGB fit and 14 on the deferred duck), with the device times
-    # of every kernel and yardstick measured in one profiler run
+    # 10. scale-out and auxiliaries: the tile-sharded bench at world size 1 (NCCL) and 2 (gloo), the duck's textured
+    # multi-view step and the view-sharded fitter over 2 ranks, the Adam depth fit, a batch, the viewer
+    scale_measured, scale_launches, ms["scale_out"] = run_scale_out(device, say)
+    measured.update(scale_measured)
+    launches.update(scale_launches)
+
+    # 11. kernels line: one record per kernel and main path that launches it (the raster forward
+    # runs on all thirteen, with 3 attribute planes on the bench scene, its band, Scene2D and the large mesh, 7 on the
+    # duck (float64 on the multi-view duck), 8 on the perspective duck, 1 on the depth fit, 3 on the RGB fit and 14 on
+    # the deferred duck), with the device times of every kernel and yardstick measured in one profiler run
     # key → (function, the hand kernel it launches): a wrapper launches the kernel of its name
     fns = {(id(m), f): (m[f], f"{name}_kernel") if f == "device_fn" else m[f]
            for per_kernel in measured.values() for name, m in per_kernel.items()

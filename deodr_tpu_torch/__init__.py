@@ -15,7 +15,10 @@ global switches. The fitters (``deodr_tpu_torch.mesh_fitter``) fit a mesh
 to a depth image, an RGB image or several views through it, and
 ``deodr_tpu_torch.examples`` holds the JAX package's examples on the port;
 ``data_path`` is the repository's ``data/`` folder, which holds their
-inputs.
+inputs. ``deodr_tpu_torch.parallel`` scales out over ``torch.distributed``
+(a ("views", "tiles") device mesh, tile-sharded rendering, view-parallel
+steps; its four public names are exported here too), and
+``deodr_tpu_torch.profiling`` gives per-kernel device times.
 """
 
 import os as _os
@@ -33,14 +36,29 @@ from deodr_tpu_torch.mesh_fitter import (
     MeshRGBFitterWithPose,
     MeshRGBFitterWithPoseMultiFrame,
 )
-from deodr_tpu_torch.ops.render import SceneBuffers, render_scene, scene_buffers_from_numpy, validate_capacities
+from deodr_tpu_torch.ops.render import (
+    SceneBuffers,
+    render_scene,
+    render_scene_batch,
+    scene_buffers_from_numpy,
+    validate_capacities,
+)
 from deodr_tpu_torch.ops.tiled import EdgeTexPlan, TilingConfig, suggest_tiling
+from deodr_tpu_torch.parallel import (
+    make_device_mesh,
+    make_textured_multiview_step,
+    multiview_train_step,
+    shard_render_scene,
+)
 from deodr_tpu_torch.scene import Scene2D, Scene3D
+
+__version__ = "0.1.0"
 
 __all__ = [
     "Camera", "ColoredTriMesh", "EdgeTexPlan", "LaplacianRigidEnergy", "MeshDepthFitter", "MeshDepthFitterEnergy",
     "MeshRGBFitterWithPose", "MeshRGBFitterWithPoseMultiFrame", "PerspectiveCamera", "Scene2D", "Scene3D",
     "SceneBuffers", "TilingConfig", "TriMesh", "TriMeshAdjacencies", "data_path", "default_camera",
-    "loop_subdivision", "read_obj", "render_scene", "save_obj", "scene_buffers_from_numpy", "suggest_tiling",
-    "validate_capacities",
+    "loop_subdivision", "make_device_mesh", "make_textured_multiview_step", "multiview_train_step", "read_obj",
+    "render_scene", "render_scene_batch", "save_obj", "scene_buffers_from_numpy", "shard_render_scene",
+    "suggest_tiling", "validate_capacities",
 ]

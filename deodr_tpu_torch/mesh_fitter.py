@@ -81,6 +81,23 @@ def _fetch(tensors, stats: Optional[torch.Tensor] = None):
     return flat[pos:], out
 
 
+def _exchange_frames(group, images, diffs, e_frames, gq, gt, shared_grads):
+    """A view-sharded step's collectives: one all-reduce of the frame-summed
+    shared gradients, one all-gather of each frame's energy, pose
+    gradients, image and residual image → the same values for every frame
+    on every rank, the shared gradients summed over all frames."""
+    from deodr_tpu_torch.parallel.sharding import _all_gather, _all_reduce_flat
+
+    n = len(images)
+    per_frame = [e_frames[:, None], gq, gt, torch.stack(images).reshape(n, -1), torch.stack(diffs).reshape(n, -1)]
+    widths = [t.shape[1] for t in per_frame]
+    gathered = _all_gather(torch.cat(per_frame, dim=1), group).split(widths, dim=1)
+    e_frames, gq, gt = gathered[0][:, 0], gathered[1], gathered[2]
+    images = list(gathered[3].reshape((-1,) + tuple(images[0].shape)).unbind(0))
+    diffs = list(gathered[4].reshape((-1,) + tuple(diffs[0].shape)).unbind(0))
+    return images, diffs, e_frames, gq, gt, _all_reduce_flat(shared_grads, group)
+
+
 class _FitterRenderCore:
     """The fitters' planner: render plans from plan statistics, kept under
     hysteresis, one host read per step, and a periodic check of every bin
@@ -726,9 +743,10 @@ class MeshRGBFitterWithPose(_Fitter):
 
 class MeshRGBFitterWithPoseMultiFrame(MeshRGBFitterWithPose):
     """Fit a deformable mesh to several RGB views with a pose per frame and
-    shared vertices, color and lights, on one device: the frames render in
-    sequence under one plan made from the statistics maxed over the frames,
-    and one host read a step.
+    shared vertices, color and lights: the frames render in sequence under
+    one plan made from the statistics maxed over the frames, and one host
+    read a step; with :meth:`set_device_mesh`, split over the ranks of a
+    ``views`` mesh axis.
 
     As in the JAX package, the data term is each frame's full image
     residual, times ``cdata / nb_frames``.
@@ -778,12 +796,24 @@ class MeshRGBFitterWithPoseMultiFrame(MeshRGBFitterWithPose):
         self.reset()
 
     def set_device_mesh(self, device_mesh) -> None:
-        """View-parallel fitting over several devices is scale-out, which
-        this package does not have yet (ROADMAP.md, queue A, item 4):
-        anything but None raises ``NotImplementedError``."""
-        if device_mesh is not None:
-            raise NotImplementedError("view-parallel fitting over several devices is not ported yet "
-                                      "(ROADMAP.md, queue A, item 4); pass None for the sequential fitter")
+        """Run the per-frame energies view-parallel over the ``views`` axis
+        of a ``torch.distributed`` ``DeviceMesh`` (from
+        :func:`deodr_tpu_torch.parallel.make_device_mesh`, or any mesh with
+        a dimension named ``views``).
+
+        Every rank holds the same fitter and steps it together. In a step
+        each rank computes the energies and gradients of its contiguous
+        share of the frames; one all-reduce sums the shared parameters'
+        gradients (vertices, color, lights) and one all-gather collects the
+        per-frame energies, pose gradients, images and residuals, so every
+        rank updates the same parameters; the plan and the host read stay
+        the sequential fitter's (every rank plans from the statistics of
+        every frame). Requires ``nb_frames`` to be a multiple of the axis'
+        size; None returns to the sequential path.
+        """
+        if device_mesh is not None and "views" not in (getattr(device_mesh, "mesh_dim_names", None) or ()):
+            raise ValueError("device mesh must have a 'views' axis")
+        self._device_mesh = device_mesh
 
     def set_images(self, mesh_images: List, focal: Optional[float] = None) -> None:
         assert mesh_images[0].ndim == 3
@@ -808,26 +838,41 @@ class MeshRGBFitterWithPoseMultiFrame(MeshRGBFitterWithPose):
         coef_data = self.cdata / nb_frames
         with torch.no_grad():
             vts = qrot(normalize(q_all), v) + t_all[:, None, :]
+        frames, group = range(nb_frames), None
+        device_mesh = getattr(self, "_device_mesh", None)
+        if device_mesh is not None:
+            from deodr_tpu_torch.parallel.sharding import _axis
+
+            n_views, coord, group = _axis(device_mesh, "views")
+            if nb_frames % n_views:
+                raise ValueError(f"nb_frames={nb_frames} must be divisible by the 'views' mesh size {n_views}")
+            per = nb_frames // n_views
+            frames = range(coord * per, (coord + 1) * per)
 
         def run(cap, tiling):
-            """Every frame's energy and gradients: the shared parameters'
-            gradients summed over the frames by one autograd call."""
+            """The energy and gradients of each of this rank's frames: the
+            shared parameters' gradients summed over the frames by one
+            autograd call (and over the ranks by one all-reduce)."""
             v_l, color_l, ld_l, la_l = (p.detach().requires_grad_(True) for p in [v] + shared)
-            q_l = [q_all[i].detach().requires_grad_(True) for i in range(nb_frames)]
-            t_l = [t_all[i].detach().requires_grad_(True) for i in range(nb_frames)]
+            q_l = [q_all[i].detach().requires_grad_(True) for i in frames]
+            t_l = [t_all[i].detach().requires_grad_(True) for i in frames]
             energies, images, diffs = [], [], []
-            for i in range(nb_frames):
-                e, image, diff = self._data_energy((v_l, q_l[i], t_l[i], color_l, ld_l, la_l), self._obs[i],
+            for k, i in enumerate(frames):
+                e, image, diff = self._data_energy((v_l, q_l[k], t_l[k], color_l, ld_l, la_l), self._obs[i],
                                                    cap, tiling, coef_data)
                 energies.append(e)
                 images.append(image.detach())
                 diffs.append(diff.detach())
+            n = len(frames)
             grads = torch.autograd.grad(sum(energies), [v_l, color_l, ld_l, la_l] + q_l + t_l)
             with torch.no_grad():
                 e_rigid, grad_rigidity, _ = self.rigid_energy.evaluate(v)
-            gq = torch.stack(grads[4:4 + nb_frames])
-            gt = torch.stack(grads[4 + nb_frames:])
-            return (images, diffs), [torch.stack(energies), gq, gt, *grads[:4], e_rigid, grad_rigidity]
+            e_frames, gq, gt = torch.stack(energies).detach(), torch.stack(grads[4:4 + n]), torch.stack(grads[4 + n:])
+            shared_grads = list(grads[:4])
+            if group is not None:
+                images, diffs, e_frames, gq, gt, shared_grads = _exchange_frames(
+                    group, images, diffs, e_frames, gq, gt, shared_grads)
+            return (images, diffs), [e_frames, gq, gt, *shared_grads, e_rigid, grad_rigidity]
 
         def buffers_of():
             return [self._buffers(v, q_all[i], t_all[i], *shared) for i in range(nb_frames)]

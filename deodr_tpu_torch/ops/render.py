@@ -6,7 +6,9 @@ the depths (through perspective-correct interpolation), the per-vertex
 colors, the texture coordinates (``uv``), the Gouraud ``shade``, the
 ``texture`` and the background, for untextured, textured and mixed scenes,
 tiled or not, with or without ``strict_edge`` and perspective correction;
-and ``validate_capacities``, the binning-only check of a plan's capacities.
+``render_scene_batch``, a batch of scenes of one topology (the
+counterpart of ``jax.vmap(render_scene)``); and ``validate_capacities``,
+the binning-only check of a plan's capacities.
 The tiled route bins triangles densely, by pair expansion (``pair_*``) or
 by supertiles (``super_*``), as the tiling says.
 """
@@ -218,6 +220,26 @@ def render_scene(
 
     _raise_overflows(checks or ())
     return image, z_buffer, err_buffer
+
+
+def render_scene_batch(scene: SceneBuffers, sigma: float, **kwargs):
+    """Render a batch of scenes of one topology: ``scene.ij`` carries a
+    leading batch axis (B, V, 2), and ``depths`` (B, V) and ``colors``
+    (B, V, C) may; every other field is shared. The counterpart of
+    ``jax.vmap(render_scene)`` → (images (B, H, W, C), z-buffers (B, H, W),
+    error buffers (B, H, W) or None), differentiable by autograd. ``kwargs``
+    go to :func:`render_scene` and hold for every scene: one plan (one
+    ``tiling`` and its capacities) serves the batch. The scenes render one
+    after the other, so each kernel launches B times a batch."""
+    batch = scene.ij.shape[0]
+    per_scene = {
+        name: getattr(scene, name) for name, rank in (("ij", 3), ("depths", 2), ("colors", 3))
+        if getattr(scene, name).ndim == rank
+    }
+    outs = [render_scene(dataclasses.replace(scene, **{k: v[b] for k, v in per_scene.items()}), sigma, **kwargs)
+            for b in range(batch)]
+    images, z_buffers, errs = zip(*outs)
+    return torch.stack(images), torch.stack(z_buffers), None if errs[0] is None else torch.stack(errs)
 
 
 def _raise_overflows(checks) -> None:

@@ -986,3 +986,171 @@ def test_second_backward_on_the_card(cuda_device):
         grads[device.type] = (scene.ij_b.copy(), scene.colors_b.copy())
     for x, y in zip(grads["cuda"], grads["cpu"]):
         assert np.abs(x - y).max() <= 1e-9 * max(1.0, np.abs(y).max())
+
+
+# ------------------------------------------------------------ scale-out and auxiliaries
+
+
+def test_tile_sharded_render_world_size_1_nccl_equals_render_scene(cuda_device):
+    """One NCCL rank: the band is the frame, so image and z are bit-equal to
+    render_scene's (float64); the gradients differ only by the order of the
+    raster backward's atomic sums (1e-12 of scale). The scene is textured
+    and has no EdgeTexPlan, so its edges take the sequential pass: the
+    raster kernels run, the edge kernels do not."""
+    import torch_port_dist as workers
+    from deodr_tpu_torch.parallel import run_ranks
+
+    fields = workers.production_scene_fields()
+    want = workers.single_render(fields, 1.0, 64, workers.PRODUCTION_TILING, device="cuda")
+    (got,) = run_ranks(workers.tile_sharded, 1, (fields, 1.0, 64, workers.PRODUCTION_TILING, "cuda"),
+                       backend="nccl", device="cuda")
+    assert np.array_equal(got["image"], want["image"]) and np.array_equal(got["z"], want["z"])
+    for k in ("g_ij", "g_colors"):
+        assert np.abs(got[k] - want[k]).max() <= 1e-12 * max(1.0, np.abs(want[k]).max())
+    assert got["launches"]["raster_fwd"] == got["launches"]["raster_bwd"] == 1
+
+
+def test_tile_sharded_render_two_gloo_ranks_on_one_card(cuda_device):
+    """Two gloo ranks share the card: float64 image, z and gradients within
+    1e-9 (of scale) of the single-process render, one all-gather forward,
+    one all-reduce of the ij and colors gradients backward, the raster
+    kernels launched in each rank (the textured edges take the sequential
+    pass)."""
+    import torch_port_dist as workers
+    from deodr_tpu_torch.parallel import run_ranks
+
+    fields = workers.production_scene_fields()
+    want = workers.single_render(fields, 1.0, 64, workers.PRODUCTION_TILING, device="cuda")
+    for got in run_ranks(workers.tile_sharded, 2, (fields, 1.0, 64, workers.PRODUCTION_TILING, "cuda"),
+                         backend="gloo", device="cuda"):
+        assert np.abs(got["image"] - want["image"]).max() <= 1e-9
+        fin = np.isfinite(want["z"])
+        assert np.array_equal(fin, np.isfinite(got["z"])) and np.abs(got["z"][fin] - want["z"][fin]).max() <= 1e-9
+        for k in ("g_ij", "g_colors"):
+            assert np.abs(got[k] - want[k]).max() <= 1e-9 * max(1.0, np.abs(want[k]).max())
+        assert [c[0] for c in got["forward"]] == ["all_gather"] and [c[0] for c in got["backward"]] == ["all_reduce"]
+        assert got["launches"]["raster_fwd"] == got["launches"]["raster_bwd"] == 1
+
+
+def test_textured_multiview_step_two_ranks_on_one_card(cuda_device):
+    """The textured multi-view step on the kernel route (B1, B3) over two
+    gloo ranks against the sequential sum of its four views' gradients, in
+    float64 (1e-9 of scale); one all-reduce of texture + uv + shade + loss."""
+    import dataclasses
+
+    import torch_port_dist as workers
+    from deodr_tpu_torch import EdgeTexPlan, TilingConfig, render_scene, scene_buffers_from_numpy
+    from deodr_tpu_torch.parallel import run_ranks
+
+    fields = workers.production_scene_fields()
+    plan = (TilingConfig(**workers.PRODUCTION_TILING), EdgeTexPlan())
+    rng = np.random.RandomState(3)
+    ij = fields["ij"][None] + rng.randn(4, *fields["ij"].shape) * 0.1
+    obs = rng.rand(4, fields["height"], fields["width"], 3)
+    params = {k: fields[k] for k in ("texture", "uv", "shade")}
+    lr = 1e-3
+    buffers = scene_buffers_from_numpy(fields, device="cuda")
+    leaves = {k: torch.from_numpy(v).cuda().requires_grad_(True) for k, v in params.items()}
+    loss = 0.0
+    for v in range(4):
+        img, _, _ = render_scene(dataclasses.replace(buffers, ij=torch.from_numpy(ij[v]).cuda(), **leaves), 1.0,
+                                 aa_edge_capacity=64, tiling=plan[0], aa_tex_plan=plan[1])
+        loss = loss + ((img - torch.from_numpy(obs[v]).cuda()) ** 2).sum()
+    loss.backward()
+    for got in run_ranks(workers.textured_multiview, 2, (fields, ij, obs, params, lr, 1.0, 64, 1, "cuda", plan),
+                         backend="gloo", device="cuda"):
+        assert abs(got["losses"][0] - float(loss)) <= 1e-9 * float(loss)
+        for k, p in params.items():
+            assert _rel(torch.from_numpy((p - got["params"][k]) / lr), leaves[k].grad.cpu()) <= 1e-9, k
+        n_bytes = (sum(p.size for p in params.values()) + 1) * 8
+        assert [c[:2] for c in got["collectives"]] == [("all_reduce", n_bytes)]
+        assert all(got["launches"][k] == 2 for k in ("raster_fwd", "raster_bwd", "edge_tex_fwd", "edge_tex_bwd"))
+
+
+def test_view_sharded_fitter_two_ranks_on_one_card(cuda_device):
+    """The multi-frame fitter on octahedron_mesh(3) (512 faces: the tiled
+    route, B1 and B2), 4 frames over two gloo ranks, 3 steps against the
+    sequential fitter on the card (tests/test_parallel.py's tolerances)."""
+    import torch_port_dist as workers
+    from deodr_tpu_torch.parallel import run_ranks
+
+    want = workers.sequential_fitter(4, 48, 64, 3, device="cuda", level=3)
+    for got in run_ranks(workers.sharded_fitter, 2, (4, 48, 64, 3, "cuda", 3), backend="gloo", device="cuda"):
+        np.testing.assert_allclose(got["energies"], want["energies"], rtol=1e-9)
+        np.testing.assert_allclose(got["state"]["vertices"], want["state"]["vertices"], rtol=0, atol=1e-10)
+        for k in ("quaternion", "mesh_color", "light_directional"):
+            np.testing.assert_allclose(got["state"][k], want["state"][k], atol=1e-12, err_msg=k)
+        assert all(got["launches"][k] > 0 for k in ("raster_fwd", "raster_bwd", "edge_fwd", "edge_bwd"))
+
+
+def test_batch_matches_single_renders(cuda_device):
+    """render_scene_batch on the kernel route: each scene's image bit-equal
+    to its single render, gradients within 1e-9 of scale (float64: only the
+    atomics' order differs), each kernel launched once per scene."""
+    import dataclasses
+
+    import torch_port_dist as workers
+    from deodr_tpu_torch import TilingConfig, render_scene, render_scene_batch, scene_buffers_from_numpy
+    from deodr_tpu_torch.ops import kernels
+
+    fields = workers.production_scene_fields()
+    scene = scene_buffers_from_numpy(fields, device="cuda")
+    tiling = TilingConfig(**workers.PRODUCTION_TILING)
+    rng = np.random.RandomState(0)
+    ij = torch.from_numpy(fields["ij"][None] + rng.randn(4, *fields["ij"].shape) * 0.5).cuda().requires_grad_(True)
+    kernels.reset_launches()
+    images, _, _ = render_scene_batch(dataclasses.replace(scene, ij=ij, texture=None), 1.0, aa_edge_capacity=64,
+                                      tiling=tiling)
+    (images ** 2).sum().backward()
+    assert all(kernels.LAUNCHES[k] == 4 for k in ("raster_fwd", "raster_bwd", "edge_fwd", "edge_bwd"))
+    for b in range(4):
+        leaf = ij[b].detach().clone().requires_grad_(True)
+        img, _, _ = render_scene(dataclasses.replace(scene, ij=leaf, texture=None), 1.0, aa_edge_capacity=64,
+                                 tiling=tiling)
+        (img ** 2).sum().backward()
+        assert torch.equal(img.detach(), images[b].detach())
+        assert _rel(ij.grad[b], leaf.grad) <= 1e-9
+
+
+def test_device_profile_names_the_kernels_of_a_bench_step(cuda_device):
+    """device_profile around one bench fwd+bwd at σ = 1: B1f, B1b, B2f and
+    B2b each once, and a busy time no larger than the sum of the
+    operations' times."""
+    import chip_smoke
+    from deodr_tpu_torch.profiling import device_profile
+
+    _, scene, tiling, obs = chip_smoke.bench_setup(cuda_device, 144, 256, 40)
+    chip_smoke.single_bench(scene, tiling, obs)
+    with device_profile() as prof:
+        chip_smoke.single_bench(scene, tiling, obs)
+    for name in ("raster_fwd_kernel", "raster_bwd_kernel", "edge_fwd_kernel", "edge_bwd_kernel"):
+        assert sum(n for op, n in prof.counts.items() if name in op) == 1, (name, prof.report(top=50))
+    assert 0 < prof.total_us <= sum(prof.times.values()) + 1e-6
+    assert prof.report().startswith("device total:")
+
+
+@pytest.mark.parametrize("sigma", [0.0, 1.0])
+def test_degenerate_geometry_through_the_kernels(cuda_device, sigma):
+    """tests/test_degenerate_gradients.py's contract on the tiled kernel
+    route (float32): finite loss and gradients, the healthy triangle still
+    differentiated, the barycentric flags [True, False, False, False], and
+    the kernels launched."""
+    import dataclasses
+
+    from deodr_tpu_torch import TilingConfig, render_scene, scene_buffers_from_numpy
+    from deodr_tpu_torch.ops import kernels
+    from deodr_tpu_torch.ops.common import safe_barycentric_matrices
+    from torch_port_scenes import degenerate_scene_fields
+
+    scene = scene_buffers_from_numpy(degenerate_scene_fields(sigma), device="cuda", dtype=torch.float32)
+    _, valid = safe_barycentric_matrices(scene.ij.reshape(4, 3, 2))
+    assert valid.cpu().tolist() == [True, False, False, False]
+    ij = scene.ij.clone().requires_grad_(True)
+    kernels.reset_launches()
+    img, _, _ = render_scene(dataclasses.replace(scene, ij=ij), sigma, tiling=TilingConfig(16, 128, 16, 8))
+    loss = (img ** 2).sum()
+    (g,) = torch.autograd.grad(loss, (ij,))
+    assert bool(torch.isfinite(loss)) and bool(torch.isfinite(g).all())
+    assert float(g[:3].abs().max()) > 0
+    names = ("raster_fwd", "raster_bwd") + (("edge_fwd", "edge_bwd") if sigma > 0 else ())
+    assert all(kernels.LAUNCHES[k] == 1 for k in names)

@@ -545,7 +545,9 @@ def test_fitters_default_to_cuda(make):
 
 
 def test_multiframe_device_mesh_is_scale_out():
+    """None keeps the sequential fitter; a mesh needs a 'views' axis (the
+    sharded steps: tests/test_torch_port_parallel.py)."""
     fitter = multi_ex.make_fitter(device="cpu")
     fitter.set_device_mesh(None)
-    with pytest.raises(NotImplementedError, match="queue A, item 4"):
+    with pytest.raises(ValueError, match="'views' axis"):
         fitter.set_device_mesh(object())

@@ -365,9 +365,15 @@ def test_port_and_chip_smoke_import_no_jax():
         "import deodr_tpu_torch.examples.eigen_faces, deodr_tpu_torch.examples.render_mesh; "
         "import deodr_tpu_torch.examples.turntable, deodr_tpu_torch.camera, deodr_tpu_torch.geometry.mesh; "
         "import deodr_tpu_torch.ops.kernels.raster_kernel; "
+        "import deodr_tpu_torch.parallel, deodr_tpu_torch.parallel.sharding, deodr_tpu_torch.parallel.launch; "
+        "import deodr_tpu_torch.profiling, deodr_tpu_torch.examples.optax_fitting; "
+        "import deodr_tpu_torch.examples.mesh_viewer; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'deodr_tpu.')) or m == 'deodr_tpu']; "
         "assert not bad, bad; "
-        "assert 'matplotlib' not in sys.modules, 'importing the port pulled in matplotlib'"
+        "assert 'matplotlib' not in sys.modules, 'importing the port pulled in matplotlib'; "
+        "assert 'cv2' not in sys.modules, 'importing the port pulled in cv2'; "
+        "import torch.distributed as dist; "
+        "assert not dist.is_initialized(), 'importing the port made a process group'"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True, timeout=120)

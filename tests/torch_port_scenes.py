@@ -325,3 +325,24 @@ def synthetic_raster_tables(tile_h, d=7, dtype=torch.float64, device="cpu", seed
     counts = torch.tensor(RASTER_COUNTS, dtype=torch.int32, device=device)
     setup_t, affine_t = (torch.from_numpy(a).to(device, dtype) for a in (rows, affine))
     return setup_t, affine_t, counts, grid
+
+
+def degenerate_scene_fields(sigma) -> dict:
+    """tests/test_degenerate_gradients.py's scene as numpy fields (64×96,
+    float32): a healthy triangle, an exactly collinear one, a sliver below
+    float32 noise and a point, every edge flagged at σ > 0."""
+    v0 = np.array([201.13, 140.27], np.float32)
+    d = np.array([50.31, 30.77], np.float32)
+    tris = [[[10.0, 10.0], [20.0, 35.0], [40.0, 12.0]], [v0, v0 + d, v0 + 2 * d],
+            [v0, v0 + d, v0 + 2 * d + np.array([1e-5, -1e-5])], [v0, v0, v0]]
+    n_tri = 4
+    rng = np.random.RandomState(0)
+    faces = np.arange(3 * n_tri, dtype=np.int32).reshape(n_tri, 3)
+    return dict(
+        faces=faces, faces_uv=faces, ij=np.asarray(tris, np.float32).reshape(-1, 2),
+        depths=np.repeat(rng.rand(n_tri) + 0.5, 3).astype(np.float32), uv=np.zeros((3 * n_tri, 2), np.float32),
+        shade=np.zeros(3 * n_tri, np.float32), colors=rng.rand(3 * n_tri, 3).astype(np.float32),
+        edgeflags=np.full((n_tri, 3), sigma > 0), textured=np.zeros(n_tri, bool), shaded=np.zeros(n_tri, bool),
+        texture=None, background_image=None, background_color=np.array([0.2, 0.3, 0.4], np.float32), height=64,
+        width=96,
+    )
