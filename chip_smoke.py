@@ -176,7 +176,26 @@ Phases, each of which fails the run (non-zero exit) on any miss:
    toggles, each within one level of the same view with
    ``impl="reference"``, and its frames per second. The ranks run
    ``scale_out_rank``; a rank that fails fails the run;
-11. one JSON line ``{"kernels": [...]}``, one record per kernel and main path
+11. the torch class surface (``deodr_tpu_torch.interop``): (a)
+   ``Scene3DTorch`` on the duck (640×480, 4212 faces, textured, σ = 1,
+   through ``CameraTorch.from_camera`` on phase 5's camera): one forward
+   and backward of Σ (image − obs)² to the vertices, the lights, uv and
+   texture in float32, B1f, B1b, B3f and B3b launched (counts zeroed
+   before and read after), against the same call with
+   ``impl="reference"`` (image within 1e-4, gradients within 1e-3 of
+   scale), and in float64 against the port's ``Scene3D`` on the same mesh,
+   camera and lights (``render`` + ``render_backward``: image and
+   gradients within 1e-9 of scale); (b) the same on the hand of the RGB
+   fit (1048 faces, vertex colours, 200 wide × 199 high, k1 = −1, against
+   its image), B1f, B1b, B2f and B2b launched; (c) ``render_scene_torch``
+   on the hand's float64 buffers against ``render_scene`` on the plan of
+   ``plan_tiling`` (image bit-equal, gradients within 1e-12 of scale: the
+   order of float atomics); (d) 20 steps of ``torch.optim.Adam`` on the
+   duck's vertices, light and texture from a seeded perturbation towards
+   the unperturbed render (the last loss below the first) and the median
+   step beside phase 5's ``Scene3D`` step. Its kernels run at the shapes
+   of the ``duck_scene3d`` and ``rgb_fit`` records, so it adds no record;
+12. one JSON line ``{"kernels": [...]}``, one record per kernel and main path
    that launches it (launches on that path, error, times, the least time the
    card could take at that path's shapes): 47 records over the paths
    ``bench``, ``duck``, ``duck_scene3d``, ``duck_quad``, ``bench_nonstrict``,
@@ -196,7 +215,7 @@ Phases, each of which fails the run (non-zero exit) on any miss:
    bound counts only the (pixel, slot) pairs its slots cover; each backward
    bound is printed twice: with the used rows of its table written, and
    with the whole table (the zero rows up to the capacity) written;
-12. last line ``{"ok": true, "device": {...}}``.
+13. last line ``{"ok": true, "device": {...}}``.
 
 The scenes come from ``deodr_tpu_torch.bench_scene`` (numpy, seed 0, as
 ``bench.py`` builds it), ``deodr_tpu_torch.duck_scene`` (``data/duck.obj``
@@ -2482,6 +2501,235 @@ def run_scale_out(device, say):
     return measured, launches, ms
 
 
+# ---------------------------------------------------------- the torch class surface
+
+
+# Scene3DTorch with the kernels against the same call with impl="reference" (float32): the image, and the gradients
+# of their scale (float atomics add in another order)
+SURFACE_LIMIT_IMAGE, SURFACE_LIMIT_GRAD = 1e-4, 1e-3
+# float64, Scene3DTorch against the port's Scene3D on the same mesh, camera and lights: image and gradients of scale
+SURFACE_LIMIT_F64 = 1e-9
+# render_scene_torch against render_scene on the same plan (float64): one function, so the image is bit-equal; the
+# backward kernels add with float atomics, whose order changes the gradients' last bits from run to run
+BRIDGE_LIMIT_GRAD = 1e-12
+SURFACE_ADAM_STEPS = 20
+
+
+def surface_duck(device, dtype):
+    """The duck for ``Scene3DTorch`` (phase 5's mesh, camera, light and
+    background) → (mesh, camera, inputs by name on ``device`` in ``dtype``,
+    background colour)."""
+    from deodr_tpu_torch import data_path
+    from deodr_tpu_torch import duck_scene as ds
+    from deodr_tpu_torch.camera import default_camera
+    from deodr_tpu_torch.geometry.mesh import ColoredTriMesh
+
+    mesh = ColoredTriMesh.load(os.path.join(data_path, "duck.obj"))
+    camera = default_camera(ds.DUCK_WIDTH, ds.DUCK_HEIGHT, 60, mesh.vertices.numpy(), np.diag([1.0, -1.0, -1.0]))
+    inputs = dict(vertices=mesh.vertices, light_directional=ds.LIGHT_DIRECTIONAL, light_ambient=ds.LIGHT_AMBIENT,
+                  uv=mesh.uv, texture=mesh.texture)
+    inputs = {k: torch.as_tensor(v, dtype=dtype, device=device) for k, v in inputs.items()}
+    return mesh, camera, inputs, np.array(ds.BACKGROUND_COLOR)
+
+
+def surface_hand(device, dtype):
+    """The hand of the RGB fit at its start (200 wide × 199 high, k1 = −1,
+    the fit's colour, lights and background) → (mesh, camera, inputs by
+    name, background colour, the fit's image)."""
+    from deodr_tpu_torch.examples import rgb_image_hand_fitting as rgb_ex
+
+    fitter = rgb_ex.make_fitter(device=device, dtype=dtype)
+    vertices = fitter.vertices_init + fitter.transform_translation_init  # the start pose: no rotation
+    inputs = dict(vertices=vertices, vertices_colors=np.tile(fitter.default_color, (len(vertices), 1)),
+                  light_directional=fitter.default_light_directional, light_ambient=fitter.default_light_ambient)
+    inputs = {k: torch.as_tensor(v, dtype=dtype, device=device) for k, v in inputs.items()}
+    return fitter.mesh, fitter.camera, inputs, fitter.background_color, fitter.mesh_image
+
+
+def surface_step(scene, camera, inputs, obs):
+    """``Scene3DTorch.render`` of fresh leaves of ``inputs`` and the
+    backward of Σ (image − obs)² → (image, gradients by name)."""
+    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in inputs.items()}
+    image = scene.render(camera, **leaves)
+    ((image - obs) ** 2).sum().backward()
+    return image.detach(), {k: v.grad for k, v in leaves.items()}
+
+
+def scene3d_step_of(mesh, camera, inputs, background, obs, device):
+    """The port's ``Scene3D`` on a mesh of ``mesh``'s faces with the
+    vertices, colours or texture and lights of ``inputs``: ``render`` +
+    ``render_backward`` of Σ (image − obs)² → (image, gradients by name)."""
+    from deodr_tpu_torch.geometry.mesh import ColoredTriMesh
+    from deodr_tpu_torch.scene import Scene3D
+
+    m = ColoredTriMesh(mesh.faces, inputs["vertices"], clockwise=mesh.clockwise, faces_uv=mesh.faces_uv,
+                       uv=inputs.get("uv"), texture=inputs.get("texture"), colors=inputs.get("vertices_colors"))
+    scene = Scene3D(sigma=1.0, device=device)
+    scene.set_mesh(m)
+    scene.set_light(inputs["light_directional"].cpu().numpy(), float(inputs["light_ambient"]))
+    scene.set_background_color(background)
+    image = scene.render(camera)
+    scene.render_backward(2 * (image - obs))
+    grads = dict(vertices=m._vertices_b, vertices_colors=m.vertices_colors_b, uv=getattr(m, "uv_b", None),
+                 texture=getattr(m, "texture_b", None), light_directional=scene.light_directional_b,
+                 light_ambient=scene.light_ambient_b)
+    return image, {k: grads[k] for k in inputs}
+
+
+def hold_surface(tag, got, want, say, limit_image, limit_grad):
+    """Image and gradients of ``got`` against ``want`` (each (image, gradients by name))."""
+    e_img = max_err(got[0], want[0])
+    errs = {k: rel_err(got[1][k], want[1][k]) for k in want[1]}
+    say(f"{tag}: image err {e_img:.3g} (limit {limit_image:g}), {'bit-equal' if e_img == 0 else 'not bit-equal'}; "
+        f"gradient err of scale (limit {limit_grad:g}): " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    check(bool(torch.isfinite(got[0]).all()) and tuple(got[0].shape) == tuple(want[0].shape),
+          f"{tag}: the image is not finite or has the wrong shape")
+    check(all(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0 for g in got[1].values()),
+          f"{tag}: a gradient is non-finite or all zero")
+    check(e_img <= limit_image and all(v <= limit_grad for v in errs.values()), f"{tag}: outside its tolerance")
+
+
+def run_surface_scene(tag, scene_data, device, say, kernels_expected):
+    """Phase 11a/b: ``Scene3DTorch`` in float32 with the kernels (launches
+    zeroed before and read after) against ``impl="reference"``, and in
+    float64 against the port's ``Scene3D`` → the float64 (mesh, camera,
+    inputs, background, obs, Scene3D's buffers and plan capacity)."""
+    from deodr_tpu_torch.interop import CameraTorch, Scene3DTorch
+    from deodr_tpu_torch.ops import kernels
+
+    results = {}
+    for dtype in (torch.float32, torch.float64):
+        mesh, camera, inputs, background, obs = scene_data(device, dtype)
+        camera_t = CameraTorch.from_camera(camera)
+        scenes = {}
+        for impl in ("kernel", "reference"):
+            scenes[impl] = Scene3DTorch(sigma=1.0, device=device, impl=impl)
+            scenes[impl].set_mesh(mesh)
+            scenes[impl].set_background_color(background)
+        if obs is None:  # the target: the render plus 0.05, clipped, as bench.py's duck loss
+            with torch.no_grad():
+                obs = (scenes["kernel"].render(camera_t, **inputs) + 0.05).clamp(0.0, 1.0)
+        obs = torch.as_tensor(obs, dtype=dtype, device=device)
+        if dtype == torch.float32:
+            kernels.reset_launches()
+            got = surface_step(scenes["kernel"], camera_t, inputs, obs)
+            launches = dict(kernels.LAUNCHES)
+            say(f"launches of Scene3DTorch on the {tag}: {launches}")
+            for name in kernels_expected:
+                check(device.type != "cuda" or launches[name] > 0,
+                      f"{name} was never launched by Scene3DTorch on the {tag}")
+            hold_surface(f"Scene3DTorch on the {tag}, float32, against impl='reference'", got,
+                         surface_step(scenes["reference"], camera_t, inputs, obs), say, SURFACE_LIMIT_IMAGE,
+                         SURFACE_LIMIT_GRAD)
+        else:
+            got = surface_step(scenes["kernel"], camera_t, inputs, obs)
+            hold_surface(f"Scene3DTorch on the {tag}, float64, against Scene3D", got,
+                         scene3d_step_of(mesh, camera, inputs, background, obs, device), say, SURFACE_LIMIT_F64,
+                         SURFACE_LIMIT_F64)
+            results = dict(mesh=mesh, camera=camera, inputs=inputs, background=background, obs=obs)
+    return results
+
+
+def run_bridge(hand, device, say):
+    """Phase 11c: ``render_scene_torch`` on the hand's float64 buffers
+    against ``render_scene`` on the plan of ``plan_tiling``."""
+    from deodr_tpu_torch.interop import render_scene_torch
+    from deodr_tpu_torch.ops import kernels
+    from deodr_tpu_torch.ops.render import render_scene
+    from deodr_tpu_torch.scene import Scene3D, plan_tiling
+
+    scene = Scene3D(sigma=1.0, device=device)
+    scene.set_mesh(hand["mesh"])
+    with torch.no_grad():
+        inputs = hand["inputs"]
+        buffers, _ = scene._build_buffers(hand["camera"], inputs["vertices"], inputs["vertices_colors"],
+                                          inputs["light_directional"], inputs["light_ambient"], None, None, True)
+    buffers = dataclasses.replace(buffers, background_color=torch.as_tensor(hand["background"], device=device))
+    names = ("ij", "colors", "uv", "shade")
+    cap = int(buffers.edgeflags.sum())
+    tiling = plan_tiling(buffers.ij, buffers.faces, buffers.edgeflags, buffers.height, buffers.width, 1.0)
+    check(tiling is not None, "render_scene_torch: the hand's 1048 faces did not plan the tiled route")
+
+    def run(render):
+        leaves = {k: getattr(buffers, k).detach().clone().requires_grad_(True) for k in names}
+        image = render(leaves)
+        ((image - hand["obs"]) ** 2).sum().backward()
+        # an untextured scene reads no uv and no shade: they get no gradient
+        return image.detach(), {k: v.grad for k, v in leaves.items() if v.grad is not None}
+
+    kernels.reset_launches()
+    got = run(lambda t: render_scene_torch(buffers, 1.0, t["ij"], t["colors"], t["uv"], t["shade"], None,
+                                           aa_edge_capacity=cap))
+    launches = dict(kernels.LAUNCHES)
+    want = run(lambda t: render_scene(dataclasses.replace(buffers, **t), 1.0, aa_edge_capacity=cap, tiling=tiling)[0])
+    say(f"render_scene_torch on the hand ({tiling}): launches {launches}")
+    for name in UNTEXTURED_KERNELS:
+        check(device.type != "cuda" or launches[name] > 0, f"{name} was never launched by render_scene_torch")
+    check(torch.equal(got[0], want[0]), "render_scene_torch: the image differs from render_scene's on the same plan")
+    check(set(got[1]) == set(want[1]) == {"ij", "colors"}, "render_scene_torch: not the gradients of render_scene")
+    hold_surface("render_scene_torch on the hand, float64, against render_scene", got, want, say, 0.0,
+                 BRIDGE_LIMIT_GRAD)
+
+
+def run_surface_adam(device, say, scene3d_ms, smi_line):
+    """Phase 11d: SURFACE_ADAM_STEPS steps of ``torch.optim.Adam`` on the
+    duck's vertices, light and texture through ``Scene3DTorch``, from a
+    seeded perturbation towards the unperturbed render → median ms a step."""
+    from deodr_tpu_torch.interop import CameraTorch, Scene3DTorch
+
+    mesh, camera, inputs, background = surface_duck(device, torch.float32)
+    camera = CameraTorch.from_camera(camera)
+    scene = Scene3DTorch(sigma=1.0, device=device)
+    scene.set_mesh(mesh)
+    scene.set_background_color(background)
+    with torch.no_grad():
+        target = scene.render(camera, **inputs)
+    gen = torch.Generator(device="cpu").manual_seed(14)
+
+    def moved(name, scale):
+        noise = torch.randn(inputs[name].shape, generator=gen, dtype=torch.float32).to(device)
+        return (inputs[name] + scale * noise).requires_grad_(True)
+
+    extent = float((inputs["vertices"].amax(dim=0) - inputs["vertices"].amin(dim=0)).max())
+    params = dict(vertices=moved("vertices", 2e-3 * extent), light_directional=moved("light_directional", 0.05),
+                  texture=moved("texture", 0.05))
+    optimizer = torch.optim.Adam([{"params": [params["vertices"]], "lr": 2e-4 * extent},
+                                  {"params": [params["light_directional"], params["texture"]], "lr": 5e-3}])
+    losses = []
+
+    def step():
+        optimizer.zero_grad()
+        image = scene.render(camera, params["vertices"], light_directional=params["light_directional"],
+                             light_ambient=inputs["light_ambient"], uv=inputs["uv"], texture=params["texture"])
+        loss = ((image - target) ** 2).sum()
+        loss.backward()
+        optimizer.step()
+        losses.append(loss.detach())
+
+    ms = median_step_ms(step, device, reps=SURFACE_ADAM_STEPS - 3)  # after its three warm-up steps
+    losses = [float(v) for v in losses]
+    say(f"Scene3DTorch Adam on the duck: loss {losses[0]:.4f} -> {losses[-1]:.4f} in {len(losses)} steps")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], "Scene3DTorch Adam: the loss did not fall")
+    say(f"Scene3DTorch duck Adam step (render + backward + Adam): median {ms:.4f} ms beside phase 5's Scene3D duck "
+        f"step {scene3d_ms:.4f} ms, on {smi_line}")
+    return ms
+
+
+def run_torch_surface(device, say, scene3d_ms, smi_line):
+    """Phase 11; returns the median Adam step ms."""
+    t0 = time.perf_counter()
+
+    def duck(dev, dtype):
+        return surface_duck(dev, dtype) + (None,)
+
+    run_surface_scene("duck", duck, device, say, ("raster_fwd", "raster_bwd", "edge_tex_fwd", "edge_tex_bwd"))
+    hand = run_surface_scene("hand", surface_hand, device, say, UNTEXTURED_KERNELS)
+    run_bridge(hand, device, say)
+    ms = run_surface_adam(device, say, scene3d_ms, smi_line)
+    say(f"phase 11 (the torch class surface) took {time.perf_counter() - t0:.1f} s")
+    return ms
+
+
 def run(device="cuda", height=512, width=512, n_tri=200, smi_line=None):
     """All phases; raises on any miss. Returns the kernels record and the
     step times. A smaller bench scene only serves a rehearsal on the CPU;
@@ -2508,7 +2756,11 @@ def run(device="cuda", height=512, width=512, n_tri=200, smi_line=None):
         kernels.library()
         say(f"build: {path.name} in {time.perf_counter() - t0:.1f} s")
 
+    def phase_took(n, what, t0):
+        say(f"phase {n} ({what}) took {time.perf_counter() - t0:.1f} s")
+
     # 3. the untextured path on the bench scene
+    t0 = time.perf_counter()
     _, scene, tiling, obs = bench_setup(device, height, width, n_tri)
     say(f"tiling: {tiling}")
 
@@ -2528,26 +2780,35 @@ def run(device="cuda", height=512, width=512, n_tri=200, smi_line=None):
         say(f"fwd+bwd step sigma={sigma:g}: median {t:.4f} ms, {height * width / (t * 1e-3) / 1e6:.2f} Mpix/s")
     profile_step(lambda: loss_and_grads(scene, 1.0, tiling, obs, False, "kernel", check_capacity=False),
                  "sigma=1", device, say)
+    phase_took(3, "the bench scene", t0)
 
     # 4. the textured path on the duck
+    t0 = time.perf_counter()
     measured["duck"], launches["duck"], ms["duck"] = run_duck(device, say)
+    phase_took(4, "the duck", t0)
 
     # 5. Scene3D on the duck, with and without the quad fetch (kernel B4)
+    t0 = time.perf_counter()
     scene3d_measured, scene3d_launches, ms["scene3d"] = run_scene3d(device, say)
     measured.update(scene3d_measured)
     launches.update(scene3d_launches)
+    phase_took(5, "Scene3D on the duck", t0)
 
     # 6. the untiled path and the remaining raster modes
+    t0 = time.perf_counter()
     ms["untiled_bench"] = run_untiled_bench(scene, tiling, obs, device, say)
     measured["bench_nonstrict"], launches["bench_nonstrict"], ms["bench_nonstrict"] = run_bench_nonstrict(
         scene, tiling, obs, device, say)
     measured["duck_persp"], launches["duck_persp"], ms["duck_persp"] = run_duck_persp(device, say)
     ms["scene3d_untiled"] = run_scene3d_untiled(device, say)
+    phase_took(6, "the untiled path and the raster modes", t0)
 
     # 7. the hand fitters (kernels B1 and B2 at the fitters' shapes)
+    t0 = time.perf_counter()
     fit_measured, fit_launches, ms["fitters"] = run_fitters(device, say)
     measured.update(fit_measured)
     launches.update(fit_launches)
+    phase_took(7, "the hand fitters", t0)
 
     # 8. the scenes: Scene2D (the triangle soup and the 2D texture fits untiled, above 256 faces tiled), the duck
     # through render_mesh (its golden, and render_deferred: B1f at D = 14)
@@ -2565,7 +2826,10 @@ def run(device="cuda", height=512, width=512, n_tri=200, smi_line=None):
     measured.update(scale_measured)
     launches.update(scale_launches)
 
-    # 11. kernels line: one record per kernel and main path that launches it (the raster forward
+    # 11. the torch class surface: Scene3DTorch on the duck (B1, B3) and the hand (B1, B2), render_scene_torch, Adam
+    ms["torch_surface_adam"] = run_torch_surface(device, say, ms["scene3d"]["per-pixel"], smi_line)
+
+    # 12. kernels line: one record per kernel and main path that launches it (the raster forward
     # runs on all thirteen, with 3 attribute planes on the bench scene, its band, Scene2D and the large mesh, 7 on the
     # duck (float64 on the multi-view duck), 8 on the perspective duck, 1 on the depth fit, 3 on the RGB fit and 14 on
     # the deferred duck), with the device times of every kernel and yardstick measured in one profiler run

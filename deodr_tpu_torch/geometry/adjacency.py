@@ -16,7 +16,11 @@ import torch
 
 
 def _normalize(x: torch.Tensor) -> torch.Tensor:
-    return x / torch.sqrt((x**2).sum(dim=1, keepdim=True))
+    """Rows of x over their norms. The squared norm is floored at the dtype's
+    smallest normal number: a zero row (a degenerate face) stays zero, with
+    finite gradients, where the bare quotient gives NaN; a row whose squared
+    norm is a normal number is unchanged, bit for bit."""
+    return x / torch.sqrt((x**2).sum(dim=1, keepdim=True).clamp_min(torch.finfo(x.dtype).tiny))
 
 
 class TriMeshAdjacencies:
@@ -118,7 +122,7 @@ class TriMeshAdjacencies:
     # ---- per-frame differentiable operations --------------------------------
 
     def compute_face_normals(self, vertices: torch.Tensor) -> torch.Tensor:
-        """Unit face normals (F, 3)."""
+        """Unit face normals (F, 3); a degenerate face's is zero."""
         tri = vertices[self._index("faces", vertices.device)]
         n = torch.linalg.cross(tri[:, 1, :] - tri[:, 0, :], tri[:, 2, :] - tri[:, 0, :], dim=1)
         if self.clockwise:

@@ -1,9 +1,11 @@
 """Triangle mesh classes: static topology (numpy), geometry as tensors.
 
-PyTorch counterpart of ``deodr_tpu/geometry/mesh.py`` without its
-conversion and plotting helpers: ``TriMesh``, ``ColoredTriMesh``,
-``ColoredTriMesh.load`` for Wavefront OBJ files and
-``ColoredTriMesh.subdivise`` (Loop subdivision).
+PyTorch counterpart of ``deodr_tpu/geometry/mesh.py``: ``TriMesh``,
+``ColoredTriMesh``, ``ColoredTriMesh.subdivise`` (Loop subdivision), the
+conversions from and to ``trimesh`` (in numpy, on objects with trimesh's
+attributes; ``trimesh`` itself is imported only by ``to_trimesh`` and
+``load``) and ``ColoredTriMesh.load``, which reads Wavefront OBJ files
+without ``trimesh``.
 """
 
 from __future__ import annotations
@@ -178,10 +180,95 @@ class ColoredTriMesh(TriMesh):
         ax.quiver(v[:, 0], v[:, 1], v[:, 2], u, w, n, length=0.03, normalize=True, color=[0, 1, 0])
 
     @staticmethod
-    def load(filename: str) -> "ColoredTriMesh":
-        """Load a Wavefront OBJ file with its texture, if it has one."""
-        if not filename.lower().endswith(".obj"):
-            raise ValueError(f"only Wavefront .obj files are read, got {filename}")
-        from deodr_tpu_torch.io.obj import load_obj_mesh
+    def from_trimesh(mesh, compute_adjacencies: bool = True) -> "ColoredTriMesh":
+        """The mesh of a ``trimesh.Trimesh`` (any object with its
+        ``vertices``, ``faces`` and ``visual`` attributes), re-merging the
+        vertices that a UV seam split so that the surface stays manifold
+        (the reference's ``deodr/triangulated_mesh.py:368-439``)."""
+        colors = None
+        uv = None
+        texture = None
+        if mesh.visual.kind == "vertex":
+            colors = np.asarray(mesh.visual.vertex_colors).copy()
+            if colors.ndim == 2 and colors.shape[1] == 4:
+                colors = colors[:, :3]
+            colors = colors.astype(np.float64) / 255
+        elif mesh.visual.kind == "face":
+            raise ValueError("per-face colors not supported (would need antialiasing at the seams)")
+        elif mesh.visual.kind == "texture" and mesh.visual.uv is not None:
+            texture = np.array(mesh.visual.material.image) / 255
+            if texture.ndim == 3 and texture.shape[2] == 4:
+                texture = texture[:, :, :3]
+            # OpenGL uv in [0, 1] with v up → pixel uv with integer texel
+            # centres and the origin at the upper-left texel
+            uv = (
+                np.column_stack(
+                    (mesh.visual.uv[:, 0] * texture.shape[1], (1 - mesh.visual.uv[:, 1]) * texture.shape[0])
+                )
+                - 0.5
+            )
 
-        return load_obj_mesh(filename)
+        vertices, return_index, inv_ids = np.unique(mesh.vertices, axis=0, return_index=True, return_inverse=True)
+        inv_ids = inv_ids.reshape(-1)
+        faces = inv_ids[mesh.faces].astype(np.int32)
+        if colors is not None:
+            colors2 = colors[return_index, :]
+            if np.any(colors != colors2[inv_ids, :]):
+                raise ValueError(
+                    "vertices at the same 3D location should have the same color "
+                    "for the rendering to be differentiable"
+                )
+        else:
+            colors2 = None
+        return ColoredTriMesh(
+            faces,
+            vertices,
+            clockwise=False,
+            faces_uv=np.asarray(mesh.faces),
+            uv=uv,
+            texture=texture,
+            colors=colors2,
+            compute_adjacencies=compute_adjacencies,
+        )
+
+    def to_trimesh(self):
+        """The mesh as a ``trimesh.Trimesh`` with a texture (textured meshes
+        only; the reference's ``deodr/triangulated_mesh.py:441-478``).
+        Needs ``trimesh`` and ``PIL``."""
+        import PIL.Image
+        import trimesh
+
+        if self.vertices_colors is not None:
+            raise ValueError("Conversion to trimesh with per-vertex color not supported yet")
+        assert self.uv is not None and self.texture is not None, "Only meshes with texture supported."
+        v = self.vertices.detach().cpu().numpy()
+        uv_np = self.uv.detach().cpu().numpy()
+        tex_np = self.texture.detach().cpu().numpy()
+        vt = np.column_stack(
+            ((uv_np[:, 0] + 0.5) / tex_np.shape[1], 1 - ((uv_np[:, 1] + 0.5) / tex_np.shape[0]))
+        )
+        new_faces, mask_v, mask_vt = trimesh.visual.texture.unmerge_faces(self.faces, self.faces_uv)
+        new_vertices = v[mask_v].copy()
+        uv2 = vt[mask_vt].copy()
+        texture_uint8 = np.clip(tex_np * 255, 0, 255).astype(np.uint8)
+        if texture_uint8.shape[2] == 1:
+            texture_uint8 = texture_uint8.squeeze(axis=2)
+        material = trimesh.visual.material.SimpleMaterial(image=PIL.Image.fromarray(texture_uint8))
+        visual = trimesh.visual.texture.TextureVisuals(uv=uv2, material=material)
+        return trimesh.Trimesh(vertices=new_vertices, faces=new_faces, visual=visual)
+
+    @staticmethod
+    def load(filename: str, process: bool = False) -> "ColoredTriMesh":
+        """Load a mesh file through ``trimesh.load_mesh(filename,
+        process=process)``; without ``trimesh``, a Wavefront OBJ file with
+        the port's own reader (its texture too, if it has one), and any
+        other file raises the ``ImportError``."""
+        try:
+            import trimesh
+        except ImportError:
+            if filename.lower().endswith(".obj"):
+                from deodr_tpu_torch.io.obj import load_obj_mesh
+
+                return load_obj_mesh(filename)
+            raise
+        return ColoredTriMesh.from_trimesh(trimesh.load_mesh(filename, process=process))

@@ -6,7 +6,10 @@ directory, a timeout of ``TIMEOUT_S`` so that a hung collective fails the
 run instead of waiting gloo's 30 minutes), calls ``fn(rank, world_size,
 *args)`` on each and returns the results in rank order. A rank that raises
 makes ``run_ranks`` raise (``torch.multiprocessing.spawn`` ends the other
-ranks); nothing falls back to fewer processes. On ``cuda`` the parent
+ranks); nothing falls back to fewer processes. ``device`` defaults to
+``cuda``, as the port's other entry points do: asking for it where
+``torch.cuda.is_available()`` is false raises before any rank is spawned,
+and the CPU takes ``device="cpu"``. On ``cuda`` the parent
 builds the kernels before any rank starts, so that no two ranks compile
 into the build directory at once; rank ``r`` uses card ``r % device_count``
 (every rank shares the one card of a one-card machine, where the process
@@ -23,6 +26,8 @@ from typing import Callable, Optional
 
 import torch
 import torch.distributed as dist
+
+from deodr_tpu_torch.scene import _device
 
 # a collective that waits longer than this fails the run (gloo's default is 30 minutes)
 TIMEOUT_S = 180
@@ -51,14 +56,16 @@ def _rank_main(rank, fn, world_size, init_method, backend, device, threads, out_
         pickle.dump(result, f)
 
 
-def run_ranks(fn: Callable, world_size: int, args: tuple = (), backend: str = "gloo", device: str = "cpu",
+def run_ranks(fn: Callable, world_size: int, args: tuple = (), backend: str = "gloo", device: Optional[str] = None,
               threads: Optional[int] = None) -> list:
     """Run ``fn(rank, world_size, *args)`` on ``world_size`` spawned ranks of
     one process group → their results (picklable; numpy arrays travel
     best) in rank order. ``fn`` must be importable by name (a module-level
-    function). ``threads`` sets each rank's PyTorch intra-op threads."""
+    function). ``device`` is ``"cuda"`` (the default) or ``"cpu"``;
+    ``threads`` sets each rank's PyTorch intra-op threads."""
     import torch.multiprocessing as mp
 
+    device = _device(device).type
     if device == "cuda":
         from deodr_tpu_torch.ops import kernels
 

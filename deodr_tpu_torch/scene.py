@@ -27,7 +27,7 @@ import collections
 import math
 import os
 import warnings
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -102,6 +102,37 @@ def _device(device) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA was requested but torch.cuda.is_available() is False; pass device='cpu'")
     return device
+
+
+def plan_tiling(ij, faces, edgeflags, height: int, width: int, sigma: float,
+                integer_pixel_centers: bool = True) -> Optional[TilingConfig]:
+    """The tiled route's plan of a 2.5D scene of more than 256 faces (None,
+    the untiled route, for a smaller one): ``suggest_tiling`` with the tile
+    shape of the kernel route (128-wide tiles), the JAX planner's margin and
+    power-of-two buckets. ``ij``, ``faces`` and ``edgeflags`` are numpy
+    arrays or tensors; a tiled plan reads them to the host (the occupancy
+    counts are numpy)."""
+    if faces.shape[0] <= 256:
+        return None
+
+    def host(a):
+        return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+    offset = 0.0 if integer_pixel_centers else 0.5
+    return suggest_tiling(host(ij) - offset, host(faces), height, width, sigma=float(sigma),
+                          edgeflags=host(edgeflags) if sigma > 0 else None, for_pallas=True)
+
+
+class PlanView(NamedTuple):
+    """The geometry of one render that the ``Scene3D`` planner measures:
+    the projected vertices (V, 2) and their depths (V,), and for a textured
+    render its uv (Vuv, 2) and the texture's (height, width); both None for
+    an untextured one."""
+
+    points_2d: torch.Tensor
+    depths: torch.Tensor
+    uv: Optional[torch.Tensor]
+    texture_hw: Optional[Tuple[int, int]]
 
 
 class Scene2D:
@@ -226,17 +257,9 @@ class Scene2D:
         return int(np.sum(self.edgeflags))
 
     def _plan_tiling(self, sigma) -> Optional[TilingConfig]:
-        """The tiled route's plan for a scene of more than 256 faces (None,
-        the untiled route, for a smaller one): ``suggest_tiling`` with the
-        tile shape of the kernel route (128-wide tiles), the JAX planner's
-        margin and power-of-two buckets."""
-        if self.faces.shape[0] <= 256:
-            return None
-        offset = 0.0 if self.integer_pixel_centers else 0.5
-        return suggest_tiling(
-            self.ij - offset, self.faces, self.height, self.width, sigma=float(sigma),
-            edgeflags=self.edgeflags if sigma > 0 else None, for_pallas=True,
-        )
+        """The tiled route's plan (:func:`plan_tiling`)."""
+        return plan_tiling(self.ij, self.faces, self.edgeflags, self.height, self.width, sigma,
+                           self.integer_pixel_centers)
 
     def clear_gradients(self) -> None:
         self.uv_b = np.zeros(self.uv.shape)
@@ -441,10 +464,14 @@ class Scene3D:
         faces = mesh._index("faces", self.device)
         nbv, nbf = mesh.nb_vertices, mesh.nb_faces
         dtype = points_2d.dtype
+
+        def background(a):
+            return None if a is None else torch.as_tensor(a, dtype=dtype, device=self.device)
+
         no_faces = torch.zeros((nbf,), dtype=torch.bool, device=self.device)
         common = dict(
             faces=faces, ij=points_2d, depths=depths, edgeflags=edgeflags,
-            background_image=self._tensor(self.background_image), background_color=self._tensor(self.background_color),
+            background_image=background(self.background_image), background_color=background(self.background_color),
             height=camera.height, width=camera.width, clockwise=mesh.clockwise, backface_culling=backface_culling,
             strict_edge=True, perspective_correct=self.perspective_correct,
             integer_pixel_centers=self.integer_pixel_centers,
@@ -479,19 +506,34 @@ class Scene3D:
                 leaf(mesh.texture) if has_uv else None)
 
     def _render(self, camera, backface_culling, depth_only_scale, check_capacity):
-        if self.mesh is None:
+        mesh = self.mesh
+        if mesh is None:
             raise ValueError("you need to provide a mesh first")
         self._store = None  # the last render's autograd graph goes before this one is recorded
-        cap, tiling, aa_window, aa_tex_window, aa_tex_plan = self._eager_plan(camera, backface_culling)
         leaves = self._diff_inputs(depth_only_scale is not None)
-        buffers, _ = self._build_buffers(camera, *leaves, backface_culling, depth_only_scale)
+        # planned on the mesh's uv and texture, also where a depth-only render leaves them out
+        image, z_buffer = self._render_inputs(camera, leaves, backface_culling, depth_only_scale, check_capacity,
+                                              plan_texture=(self._tensor(mesh.uv), mesh.texture))
+        self._store = {"leaves": leaves, "image": image}
+        return image.detach(), z_buffer
+
+    def _render_inputs(self, camera, inputs, backface_culling, depth_only_scale=None, check_capacity=False,
+                       plan_texture=None):
+        """Plan and render the view of ``inputs`` (vertices, vertices_colors,
+        light_directional, light_ambient, uv, texture; tensors or None) →
+        (image with its autograd graph, z-buffer). The planner measures the
+        projection of the inputs' vertices and ``plan_texture`` (uv,
+        texture), by default the inputs' own."""
+        buffers, _ = self._build_buffers(camera, *inputs, backface_culling, depth_only_scale)
+        uv, texture = inputs[4:] if plan_texture is None else plan_texture
+        view = PlanView(buffers.ij, buffers.depths, uv, None if texture is None else tuple(texture.shape[:2]))
+        cap, tiling, aa_window, aa_tex_window, aa_tex_plan = self._eager_plan(camera, backface_culling, view)
         impl = "reference" if self.impl == "reference" else "kernel"
         image, z_buffer, _ = render_scene(
             buffers, float(self.sigma), aa_edge_capacity=cap, tiling=tiling, impl=impl, aa_window=aa_window,
             aa_tex_window=aa_tex_window, aa_tex_plan=aa_tex_plan, check_capacity=check_capacity,
         )
-        self._store = {"leaves": leaves, "image": image}
-        return image.detach(), z_buffer
+        return image, z_buffer
 
     def render(self, camera: Camera, return_z_buffer: bool = False, backface_culling: bool = True,
                check_capacity: bool = False):
@@ -627,9 +669,19 @@ class Scene3D:
 
     # ------------------------------------------------------------ the planner
 
-    def _plan_statistics(self, camera: Camera, backface_culling: bool, want_tiling: bool):
+    def _mesh_view(self, camera: Camera) -> PlanView:
+        """The planner's view of the mesh's own vertices, uv and texture."""
+        mesh = self.mesh
+        with torch.no_grad():
+            points_2d, depths = camera.project_points(self._tensor(mesh.vertices))
+        return PlanView(points_2d, depths, None if mesh.uv is None else self._tensor(mesh.uv),
+                        None if mesh.texture is None else tuple(mesh.texture.shape[:2]))
+
+    def _plan_statistics(self, camera: Camera, backface_culling: bool, want_tiling: bool,
+                         view: Optional[PlanView] = None):
         """The statistics the plan reads, computed on the device with one
-        host read → (dict of numpy float32 scalars, ``band_count``).
+        host read → (dict of numpy float32 scalars, ``band_count``), of
+        ``view`` (by default the mesh's own geometry, :meth:`_mesh_view`).
 
         Only what the decision reads is measured: triangle occupancy at the
         two solid tile heights the plan can pick (:func:`_tile_heights`),
@@ -641,14 +693,16 @@ class Scene3D:
         with a second host read: the split segments' bands where the plan
         splits edges, else the whole edges'."""
         mesh = self.mesh
+        view = self._mesh_view(camera) if view is None else view
         height, width = camera.height, camera.width
         sigma = float(self.sigma)
-        textured = mesh.texture is not None and mesh.uv is not None
+        has_texture = view.texture_hw is not None
+        textured = has_texture and view.uv is not None
         offset = 0.0 if self.integer_pixel_centers else 0.5
         st = {}
         band_count = None
         with torch.no_grad():
-            points_2d, depths = camera.project_points(self._tensor(mesh.vertices))
+            points_2d, depths = view.points_2d.detach(), view.depths.detach()
             pts = points_2d - offset
             faces = mesh._index("faces", self.device)
             if sigma > 0:
@@ -663,12 +717,12 @@ class Scene3D:
                 if textured:
                     faces_uv = mesh._index("faces_uv", self.device)
                     j0, j1 = faces_uv[:, [1, 2, 0]].reshape(-1), faces_uv[:, [0, 1, 2]].reshape(-1)
-                    uv = self._tensor(mesh.uv)
+                    uv = view.uv.detach()
                     uspan = (uv[j0] - uv[j1]).abs() * flat[:, None]
                     # segments at a uv length of 12 texels
                     n_seg = torch.where(flat, torch.ceil(uspan.amax(dim=1) / 12.0).clamp_min(1.0), 0.0)
                     st.update(uspan_v=uspan[:, 1].max(), uspan_u=uspan[:, 0].max(), n_seg12=n_seg.sum())
-                if mesh.texture is not None:
+                if has_texture:
                     def band_count(edge_tile_h, aa_tex_plan):
                         """Largest number of bands in one edge tile (before the occlusion cull)."""
                         grid = _grid(height, width, edge_tile_h, _TILE_W)
@@ -710,14 +764,14 @@ class Scene3D:
                     ).max()
                     sy = torch.floor(y_hi / th) - torch.floor(y_lo / th) + 1
                     st[f"span_tiles_y_{th}"] = torch.where(drawn, sy, 0.0).max()
-                if sigma > 0 and mesh.texture is None:
+                if sigma > 0 and not has_texture:
                     # the edge-pass cost model's candidates
                     for th in _edge_tile_heights(height):
                         m = _edge_band_tile_mask(p0, p1, sigma, flat, _grid(height, width, th, _TILE_W), height, width)
                         st[f"edge_occ_{th}"] = m.sum(dim=1).max()
                         st[f"edge_sum_{th}"] = m.sum()
                 st["n_drawn"] = drawn.sum()
-                if mesh.texture is not None:
+                if has_texture:
                     # occupied 8-row fetch blocks, at the tile width and the narrower candidates
                     for bw in (_TILE_W,) + _TEX_BW_CANDIDATES:
                         cb = _occupancy_counts(x_lo, x_hi, y_lo, y_hi, drawn, -(-height // 8), -(-width // bw), 8, bw)
@@ -727,9 +781,10 @@ class Scene3D:
             values = torch.stack([v.to(torch.float32) for v in st.values()]).cpu().numpy() if st else []
         return dict(zip(st, values)), band_count
 
-    def _eager_plan(self, camera: Camera, backface_culling: bool = True):
-        """The static render plan of this view → (aa_edge_capacity, tiling,
-        aa_window, aa_tex_window, aa_tex_plan), with the rules of the JAX
+    def _eager_plan(self, camera: Camera, backface_culling: bool = True, view: Optional[PlanView] = None):
+        """The static render plan of this view (of ``view``, by default the
+        mesh's own geometry) → (aa_edge_capacity, tiling, aa_window,
+        aa_tex_window, aa_tex_plan), with the rules of the JAX
         planner for its kernel route (``impl="pallas"``): capacities from
         measured bin occupancies with margins and buckets, the solid and
         edge tile heights, the drawn-triangle compaction, the texture-fetch
@@ -753,8 +808,11 @@ class Scene3D:
         want_tiling = mesh.nb_faces > 256 and self.impl != "brute"
         tile_w = _TILE_W
         quad_fetch = bool(os.environ.get("DEODR_QUAD_FETCH")) if self.quad_fetch is None else bool(self.quad_fetch)
-        stats, band_count = self._plan_statistics(camera, backface_culling, want_tiling)
+        view = self._mesh_view(camera) if view is None else view
+        stats, band_count = self._plan_statistics(camera, backface_culling, want_tiling, view)
         n_flags = int(stats["n_flags"]) if sigma > 0 else 0
+        texture_hw = view.texture_hw
+        textured = texture_hw is not None and view.uv is not None
 
         cap = aa_window = aa_tex_window = None
         if sigma > 0:
@@ -763,8 +821,8 @@ class Scene3D:
             if n_flags > 0:
                 # windows bounding the largest band (sequential edge pass only)
                 aa_window = edge_window(float(stats["span_y"]), float(stats["span_x"]), sigma, height, width)
-                if mesh.texture is not None and mesh.uv is not None:
-                    th_t, tw_t = mesh.texture.shape[0], mesh.texture.shape[1]
+                if textured:
+                    th_t, tw_t = texture_hw
                     twh = min(_pow2(max(int(stats["uspan_v"] + 4), 8), 1), th_t)
                     tww = min(_pow2(max(int(stats["uspan_u"] + 4), 128), 1), tw_t)
                     if (twh, tww) != (th_t, tw_t):
@@ -772,7 +830,7 @@ class Scene3D:
 
         last = self._last_plan.get(self._plan_key(camera, sigma, want_tiling, backface_culling, quad_fetch))
         aa_tex_plan = None
-        if sigma > 0 and n_flags > 0 and want_tiling and mesh.texture is not None and mesh.uv is not None:
+        if sigma > 0 and n_flags > 0 and want_tiling and textured:
             span = float(max(stats["uspan_v"], stats["uspan_u"]))
             if span <= 12.0:
                 n_split, seg_cap = 1, 0
@@ -798,7 +856,7 @@ class Scene3D:
             # edge tile height: 8 rows for textured scenes under taller solid
             # tiles; untextured scenes pick it by the edge-pass cost model
             edge_tile_h = 8 if tile_h > 8 else 0
-            if sigma > 0 and mesh.texture is None and n_flags > 0:
+            if sigma > 0 and texture_hw is None and n_flags > 0:
                 def edge_cost(th):
                     return float(stats[f"edge_sum_{th}"]) * (_F_VISIT + th * tile_w * _C_PX)
 
@@ -815,7 +873,7 @@ class Scene3D:
             n_tiles_sel = (-(-height // tile_h)) * (-(-width // tile_w))
             super_occ_sel = int(stats[f"super_occ_{tile_h}"])
             tex_tile_cap = tex_block_w = occ_bw = quad_fallback_cap = 0
-            if mesh.texture is not None:
+            if texture_hw is not None:
                 # 8-row fetch blocks: the narrowest width with the fewest
                 # fetched pixels, fatter rows on ties; capacity = the
                 # occupied blocks (bbox occupancy bounds the fetch's
@@ -825,7 +883,7 @@ class Scene3D:
                 n_blocks_bw = (-(-height // 8)) * (-(-width // tex_bw))
                 tex_tile_cap = min(max(8, -(-occ_bw // 8) * 8), n_blocks_bw)
                 tex_block_w = 0 if tex_bw == tile_w else tex_bw
-                tex_hw = mesh.texture.shape[:2]
+                tex_hw = texture_hw
                 if quad_fetch and tile_h % 2 == 0 and tex_hw[0] % 2 == 0 and tex_hw[1] % 2 == 0 and min(tex_hw) >= 8:
                     n_quads = tex_tile_cap * (8 // 2) * ((tex_block_w or tile_w) // 2)
                     need = -(-n_quads // 24)

@@ -50,7 +50,11 @@ at 14 attribute planes). The last three hold the large-mesh binners
 (supertiles on octahedron_mesh(5) at 2048², pairs on levels 6 and 7)
 against dense binning, B1b split over plane batches and slot windows
 against its plain version, and a second backward of one render on the card
-against the CPU.
+against the CPU. The last three hold the torch class surface
+(``deodr_tpu_torch.interop``) on the kernels as chip_smoke.py's phase 11
+does: ``Scene3DTorch`` on the duck and the hand against
+``impl="reference"`` and against ``Scene3D`` in float64, and
+``render_scene_torch`` against ``render_scene`` on the same plan.
 """
 
 import os
@@ -1154,3 +1158,32 @@ def test_degenerate_geometry_through_the_kernels(cuda_device, sigma):
     assert float(g[:3].abs().max()) > 0
     names = ("raster_fwd", "raster_bwd") + (("edge_fwd", "edge_bwd") if sigma > 0 else ())
     assert all(kernels.LAUNCHES[k] == 1 for k in names)
+
+
+@pytest.mark.parametrize("tag", ["duck", "hand"])
+def test_scene3d_torch_on_the_kernels(cuda_device, tag):
+    """chip_smoke.py's phase 11a/b: Scene3DTorch with the kernels (B1 and B3
+    on the duck, B1 and B2 on the hand, each launched) against
+    impl="reference" in float32, and in float64 against the port's Scene3D
+    on the same mesh, camera and lights (1e-9 of scale)."""
+    import chip_smoke
+
+    def duck(device, dtype):
+        return chip_smoke.surface_duck(device, dtype) + (None,)
+
+    scene_data, names = {
+        "duck": (duck, ("raster_fwd", "raster_bwd", "edge_tex_fwd", "edge_tex_bwd")),
+        "hand": (chip_smoke.surface_hand, chip_smoke.UNTEXTURED_KERNELS),
+    }[tag]
+    chip_smoke.run_surface_scene(tag, scene_data, cuda_device, print, names)
+
+
+def test_render_scene_torch_is_render_scene_on_the_card(cuda_device):
+    """chip_smoke.py's phase 11c: render_scene_torch on the hand's float64
+    buffers against render_scene on plan_tiling's plan (image bit-equal,
+    gradients within 1e-12 of scale), B1 and B2 launched."""
+    import chip_smoke
+
+    hand = chip_smoke.run_surface_scene("hand", chip_smoke.surface_hand, cuda_device, print,
+                                        chip_smoke.UNTEXTURED_KERNELS)
+    chip_smoke.run_bridge(hand, cuda_device, print)

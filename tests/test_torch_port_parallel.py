@@ -46,7 +46,7 @@ SIGMA, CAP = 1.0, 64
 
 
 def ranks(fn, world, *args):
-    return run_ranks(fn, world, args, threads=1)
+    return run_ranks(fn, world, args, device="cpu", threads=1)
 
 
 def jax_buffers(fields) -> JaxBuffers:
